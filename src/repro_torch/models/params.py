@@ -1,0 +1,80 @@
+"""Single-source-of-truth parameter declaration, as in the JAX package.
+
+Each model family declares its parameters once as a nested dict of ``Spec``
+leaves (shape + logical axes + initializer). From that tree the port derives
+``init(tree, generator)`` (materialized tensors) and ``count(tree)``. The
+stacked leading ``layers`` dimension is kept, so the port's tree matches the
+JAX package's leaf for leaf.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+
+class Spec(NamedTuple):
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"        # normal | zeros | ones (| lru_a | ssm_a |
+                                # ssm_dt | pos: other families, not ported)
+    scale: float = 1.0          # multiplier on fan-in-scaled normal
+
+
+def tree_map(f: Callable[[Any], Any], tree):
+    """Map ``f`` over the leaves (Specs or tensors) of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(f, v) for k, v in tree.items()}
+    return f(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in the JAX package's flattening order (sorted dict keys)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def stack(n: int, tree):
+    """Prepend a stacked 'layers' dim of size n to every Spec in the tree."""
+    return tree_map(
+        lambda s: Spec((n,) + s.shape, ("layers",) + s.axes, s.init, s.scale),
+        tree)
+
+
+def _init_leaf(s: Spec, generator: torch.Generator, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    if s.init == "zeros":
+        return torch.zeros(s.shape, dtype=dtype, device=device)
+    if s.init == "ones":
+        return torch.ones(s.shape, dtype=dtype, device=device)
+    if s.init != "normal":
+        raise NotImplementedError(
+            f"initializer {s.init!r} belongs to a model family the port has "
+            f"not reached yet (see ROADMAP.md, Queue 1)")
+    # fan-in scaled normal, drawn in f32 and then cast, as the JAX package
+    fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+    std = s.scale / math.sqrt(max(fan_in, 1))
+    x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (std * x).to(device=device, dtype=dtype)
+
+
+def init(tree, generator: torch.Generator, dtype=torch.bfloat16,
+         device=None):
+    """Materialize every leaf, drawing in the JAX package's leaf order from
+    ``generator`` (on its own device) and placing the result on ``device``
+    (default: the generator's device)."""
+    device = torch.device(device) if device is not None else generator.device
+
+    def go(t):
+        if isinstance(t, dict):
+            return {k: go(t[k]) for k in sorted(t)}
+        return _init_leaf(t, generator, dtype, device)
+
+    return go(tree)
+
+
+def count(tree) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(tree))

@@ -1,0 +1,321 @@
+"""Decoder-only dense transformer (qwen3 / yi / llama3), ported from the JAX
+package's ``models/transformer.py``.
+
+Parameters keep the stacked leading ``layers`` dimension of the JAX tree; the
+layer stack is a Python loop over it where the JAX package runs
+``lax.scan``. Decode uses a full-length KV cache, position-mask based. With
+``cfg.use_pallas`` prefill attention runs the port's hand-written flash
+attention kernel (``kernels/ops.flash_attention``); otherwise it runs
+``layers.chunked_attention``. Decode attention is ``layers.attend`` either
+way, as in the JAX package.
+
+The MoE and VLM families, and the JAX package's shard_map flash decode over
+a sequence-sharded cache, are not ported yet (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as nn
+from repro_torch.models.params import Spec, stack
+
+
+def _dense_only(cfg: ModelConfig):
+    if cfg.family != DENSE:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; the port serves the "
+            f"dense family (see ROADMAP.md, Queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# Parameter declaration
+# ---------------------------------------------------------------------------
+
+
+def attn_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    out: Dict[str, Any] = {
+        "wq": Spec((d, cfg.q_dim), ("embed", "heads")),
+        "wk": Spec((d, cfg.kv_dim), ("embed", "kv")),
+        "wv": Spec((d, cfg.kv_dim), ("embed", "kv")),
+        "wo": Spec((cfg.q_dim, d), ("heads", "embed")),
+    }
+    if cfg.qk_norm:
+        out["q_norm"] = Spec((cfg.head_dim,), (None,), "zeros")
+        out["k_norm"] = Spec((cfg.head_dim,), (None,), "zeros")
+    return out
+
+
+def mlp_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wi": Spec((d, f), ("embed", "mlp")),
+        "wg": Spec((d, f), ("embed", "mlp")),
+        "wo": Spec((f, d), ("mlp", "embed")),
+    }
+
+
+def layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    _dense_only(cfg)
+    return {
+        "ln1": Spec((cfg.d_model,), ("embed",), "zeros"),
+        "ln2": Spec((cfg.d_model,), ("embed",), "zeros"),
+        "attn": attn_specs(cfg),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    out = {
+        "embed": Spec((cfg.vocab_size, d), ("vocab", "embed"), "normal", 0.7),
+        "layers": stack(cfg.num_layers, layer_specs(cfg)),
+        "final_norm": Spec((d,), ("embed",), "zeros"),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = Spec((d, cfg.vocab_size), ("embed", "vocab"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with JAX's type promotion (a bf16 context times f32 weights
+    is an f32 product there; PyTorch refuses mixed dtypes)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def _project_qkv(cfg: ModelConfig, p: Dict, h: torch.Tensor,
+                 positions: torch.Tensor):
+    b, s, _ = h.shape
+    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = nn.qk_norm(q, p["q_norm"])
+        k = nn.qk_norm(k, p["k_norm"])
+    q = nn.apply_rope(q, positions, cfg.rope_theta)
+    k = nn.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, Tuple]:
+    """Self-attention over the in-context sequence (prefill)."""
+    h = nn.rmsnorm(x, p["ln1"])
+    q, k, v = _project_qkv(cfg, p["attn"], h, positions)
+    if cfg.use_pallas:
+        blk = min(128, q.shape[1])
+        ctx = kops.flash_attention(q, k, v, causal=cfg.causal,
+                                   window=cfg.sliding_window,
+                                   q_block=blk, kv_block=blk)
+    else:
+        ctx = nn.chunked_attention(q, k, v, causal=cfg.causal,
+                                   window=cfg.sliding_window,
+                                   q_chunk=cfg.attn_q_chunk)
+    b, s, _, _ = ctx.shape
+    out = _matmul(ctx.reshape(b, s, cfg.q_dim), p["attn"]["wo"])
+    return x + out, (k, v)
+
+
+def ffn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    h = nn.rmsnorm(x, p["ln2"])
+    return x + nn.gated_mlp(h, **p["mlp"])
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _layer(params: Dict, i: int) -> Dict:
+    """Layer i's slice of the stacked layer parameters (views, no copy)."""
+    def go(t):
+        if isinstance(t, dict):
+            return {k: go(v) for k, v in t.items()}
+        return t[i]
+    return go(params["layers"])
+
+
+def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    _dense_only(cfg)
+    return params["embed"][batch["tokens"]]
+
+
+def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
+                   collect_kv: bool = False):
+    """Run the layer stack. Returns (hidden, (k_stack, v_stack) | None), the
+    stacks (L,B,S,KH,Dh)."""
+    s = embeds.shape[1]
+    positions = torch.arange(s, device=embeds.device)
+    x, ks, vs = embeds, [], []
+    for i in range(cfg.num_layers):
+        p = _layer(params, i)
+        x, (k, v) = attn_block(cfg, p, x, positions)
+        x = ffn_block(cfg, p, x)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    x = nn.rmsnorm(x, params["final_norm"])
+    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    return x, kvs
+
+
+def logits_fn(cfg: ModelConfig, params: Dict, h: torch.Tensor) -> torch.Tensor:
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return h @ head
+
+
+# ---------------------------------------------------------------------------
+# Decode path
+# ---------------------------------------------------------------------------
+
+
+def cache_capacity(cfg: ModelConfig, context_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, context_len + 128)
+    return context_len + 128
+
+
+def cache_specs(cfg: ModelConfig, batch_size: int,
+                context_len: int) -> Dict[str, Any]:
+    """Declarative cache layout. ``pos`` is PER ROW (B,), which is what lets
+    the serving engine run continuous batching (each slot at its own decode
+    position)."""
+    cap = cache_capacity(cfg, context_len)
+    kv = Spec((cfg.num_layers, batch_size, cap, cfg.n_kv_heads, cfg.head_dim),
+              ("layers", "batch", "kv_seq", None, None), "zeros")
+    return {
+        "k": kv,
+        "v": kv,
+        "k_pos": Spec((batch_size, cap), ("batch", None), "zeros"),
+        "pos": Spec((batch_size,), ("batch",), "zeros"),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, context_len: int,
+               device: torch.device) -> Dict:
+    """k/v in bf16 whatever the parameters' dtype, as in the JAX package;
+    ``k_pos = -1`` marks an empty slot."""
+    tree = cache_specs(cfg, batch_size, context_len)
+    return {
+        "k": torch.zeros(tree["k"].shape, dtype=torch.bfloat16,
+                         device=device),
+        "v": torch.zeros(tree["v"].shape, dtype=torch.bfloat16,
+                         device=device),
+        "k_pos": torch.full(tree["k_pos"].shape, -1, dtype=torch.int32,
+                            device=device),
+        "pos": torch.zeros(tree["pos"].shape, dtype=torch.int32,
+                           device=device),
+    }
+
+
+def pack_cache(stack: torch.Tensor, lens: torch.Tensor,
+               cap: int) -> torch.Tensor:
+    """Per-row gather of the last min(len_i, cap) entries of a (B,S,KH,D)
+    kv stack into a (B,cap,KH,D) cache, right-padded prompts supported. A
+    layer-stacked (L,B,S,KH,D) stack gathers every layer at once (the JAX
+    package vmaps over layers)."""
+    lead = stack.ndim - 4                      # 0, or 1 with layers first
+    b, s = stack.shape[lead], stack.shape[lead + 1]
+    start = torch.clamp(lens.long() - cap, min=0)                 # (B,)
+    idx = start[:, None] + torch.arange(cap, device=stack.device)[None, :]
+    idx = torch.clamp(idx, max=s - 1)                             # (B,cap)
+    rows = torch.arange(b, device=stack.device)[:, None]
+    return stack[rows, idx] if lead == 0 else stack[:, rows, idx]
+
+
+def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
+            context_len: Optional[int] = None):
+    """Process the prompt; return (last-token logits, populated cache).
+
+    ``batch["prompt_lens"]`` (B,) optionally marks right-padded prompts;
+    defaults to the full sequence length for every row.
+    """
+    embeds = embed_inputs(cfg, params, batch)
+    b, s, _ = embeds.shape
+    dev = embeds.device
+    context_len = context_len if context_len is not None else s
+    raw_lens = batch.get("prompt_lens")
+    lens = (torch.full((b,), s, dtype=torch.int32, device=dev)
+            if raw_lens is None else raw_lens.to(device=dev,
+                                                 dtype=torch.int32))
+    h, (k_stack, v_stack) = forward_hidden(cfg, params, embeds,
+                                           collect_kv=True)
+    cache = init_cache(cfg, b, context_len, device=dev)
+    cap = cache["k"].shape[2]
+    if raw_lens is None:
+        # uniform prompt lengths: static slices into the bf16 cache
+        logits = logits_fn(cfg, params, h[:, -1:, :])
+        keep = min(s, cap)
+        cache["k"][:, :, :keep] = k_stack[:, :, s - keep:]
+        cache["v"][:, :, :keep] = v_stack[:, :, s - keep:]
+        pos = torch.arange(s - keep, s, dtype=torch.int32, device=dev)
+        cache["k_pos"][:, :keep] = pos[None, :]
+    else:
+        # ragged prompts (serving engine): per-row gather; the cache takes
+        # the stack's dtype, as in the JAX package
+        last = h[torch.arange(b, device=dev), lens.long() - 1][:, None, :]
+        logits = logits_fn(cfg, params, last)
+        cache["k"] = pack_cache(k_stack, lens, cap)
+        cache["v"] = pack_cache(v_stack, lens, cap)
+        start = torch.clamp(lens - cap, min=0)
+        k_pos = start[:, None] + torch.arange(cap, device=dev)[None, :]
+        cache["k_pos"] = torch.where(k_pos < lens[:, None], k_pos,
+                                     -1).to(torch.int32)
+    cache["pos"] = lens
+    return logits, cache
+
+
+def _flash_decode_shmap(*args, **kwargs):
+    """The JAX package's split-K flash decode over a cache sharded on a
+    device mesh's "model" axis. It runs there only under such a mesh; one
+    card has none, so ``decode_step`` takes the unsharded branch, as the JAX
+    package does without a mesh."""
+    raise NotImplementedError(
+        "the sharded flash decode needs a multi-card mesh, which the port "
+        "does not have yet (see ROADMAP.md, Queue 1)")
+
+
+def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
+    """One token for every row. batch: {"token": (B,1)}. Rows may sit at
+    different positions (continuous batching).
+
+    The k/v tensors of ``cache`` are updated IN PLACE (one row written per
+    layer) and returned in the new cache dict; ``k_pos``/``pos`` are new
+    tensors.
+    """
+    tok = batch["token"]
+    x = params["embed"][tok]                             # (B,1,D)
+    b = x.shape[0]
+    pos = cache["pos"]                                   # (B,)
+    positions = pos[:, None]
+    cap = cache["k"].shape[2]
+    slot = pos % cap                                     # (B,)
+    slots = torch.arange(cache["k_pos"].shape[1], device=pos.device)
+    k_pos = torch.where(slots[None, :] == slot[:, None], pos[:, None],
+                        cache["k_pos"])
+    for i in range(cfg.num_layers):
+        p = _layer(params, i)
+        h = nn.rmsnorm(x, p["ln1"])
+        q, k, v = _project_qkv(cfg, p["attn"], h, positions)
+        kc = nn.masked_cache_update(cache["k"][i], k, slot)
+        vc = nn.masked_cache_update(cache["v"][i], v, slot)
+        ctx = nn.attend(q, kc, vc, positions, k_pos, causal=True,
+                        window=cfg.sliding_window)
+        x = x + _matmul(ctx.reshape(b, 1, cfg.q_dim), p["attn"]["wo"])
+        x = ffn_block(cfg, p, x)
+    x = nn.rmsnorm(x, params["final_norm"])
+    logits = logits_fn(cfg, params, x)
+    new_cache = dict(cache)
+    new_cache["k_pos"] = k_pos
+    new_cache["pos"] = pos + 1
+    return logits, new_cache

@@ -1,0 +1,164 @@
+"""Continuous-batching serving engine, ported from the JAX package's
+``serving/engine.py`` with the same admission, bucketing, continuous batching
+and ``stats()``.
+
+A fixed decode batch of B slots over a shared KV cache; finished slots are
+refilled from the waiting queue without stopping the other rows (per-row
+cache positions — see models/transformer.cache_specs). Prefill runs at
+bucketed prompt lengths, and the resulting single-request cache is written
+into the live batch cache.
+
+The engine runs where its parameters lie. The batch cache is updated IN
+PLACE: ``_insert_cache`` writes a new request's cache into its slot, and each
+decode step writes one k/v row per layer (models/transformer.decode_step).
+Its prefill and decode calls are ``torch.profiler`` ranges
+(``engine.prefill``, ``engine.decode_step``) that launch/trace_serve.py
+reads; with no profiler running they cost a function call each.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model_api as api
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                 # (len,) int32
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    submitted_s: float = 0.0
+    first_token_s: Optional[float] = None
+    done_s: Optional[float] = None
+
+    @property
+    def done(self) -> bool:
+        return self.done_s is not None
+
+
+def _buckets(max_len: int) -> List[int]:
+    out, b = [], 16
+    while b < max_len:
+        out.append(b)
+        b *= 2
+    out.append(max_len)
+    return out
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params, batch_size: int = 4,
+                 max_context: int = 256, greedy: bool = True,
+                 clock: Callable[[], float] = time.monotonic):
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"].device
+        self.B = batch_size
+        self.max_context = max_context
+        self.clock = clock
+        self.queue: Deque[Request] = deque()
+        self.slots: List[Optional[Request]] = [None] * batch_size
+        self.cache = api.init_cache(cfg, batch_size, max_context,
+                                    device=self.device)
+        self._steps = 0
+        self._generated = 0
+        self.buckets = _buckets(max_context)
+        self._slot_tokens = np.zeros((batch_size, 1), np.int32)
+
+    # ------------------------------------------------------------ intake --
+    def submit(self, req: Request):
+        req.submitted_s = self.clock()
+        self.queue.append(req)
+
+    def _bucket_len(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    @torch.inference_mode()
+    def _admit(self):
+        for slot in range(self.B):
+            if self.slots[slot] is not None or not self.queue:
+                continue
+            req = self.queue.popleft()
+            n = len(req.prompt)
+            pad = self._bucket_len(n)
+            tokens = np.zeros((1, pad), np.int64)
+            tokens[0, :n] = req.prompt
+            batch = {"tokens": torch.from_numpy(tokens).to(self.device),
+                     "prompt_lens": torch.tensor([n], dtype=torch.int32,
+                                                 device=self.device)}
+            with record_function("engine.prefill"):
+                logits, small = api.prefill(self.cfg, self.params, batch,
+                                            self.max_context)
+            tok = int(torch.argmax(logits[0, -1]))
+            self._insert_cache(slot, small)
+            req.out_tokens.append(tok)
+            req.first_token_s = self.clock()
+            self._slot_tokens[slot, 0] = tok
+            self.slots[slot] = req
+
+    def _insert_cache(self, slot: int, small: Dict):
+        """Write a batch=1 cache into batch slot ``slot``, in place. k/v are
+        (L,B,cap,KH,D) with batch on axis 1; k_pos (B,cap) and pos (B,) are
+        batch-leading."""
+        self.cache["k"][:, slot] = small["k"][:, 0]
+        self.cache["v"][:, slot] = small["v"][:, 0]
+        self.cache["k_pos"][slot] = small["k_pos"][0]
+        self.cache["pos"][slot] = small["pos"][0]
+
+    # ------------------------------------------------------------- churn --
+    @torch.inference_mode()
+    def step(self) -> int:
+        """One engine iteration: admit, decode, retire. Returns #active."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return 0
+        batch = {"token": torch.from_numpy(
+            self._slot_tokens.astype(np.int64)).to(self.device)}
+        with record_function("engine.decode_step"):
+            logits, self.cache = api.decode_step(self.cfg, self.params,
+                                                 self.cache, batch)
+        self._steps += 1
+        toks = torch.argmax(logits[:, 0, :], dim=-1).to(
+            torch.int32).cpu().numpy()
+        for i in active:
+            req = self.slots[i]
+            tok = int(toks[i])
+            req.out_tokens.append(tok)
+            self._generated += 1
+            self._slot_tokens[i, 0] = tok
+            hit_eos = req.eos_id is not None and tok == req.eos_id
+            if hit_eos or len(req.out_tokens) >= req.max_new_tokens:
+                req.done_s = self.clock()
+                self.slots[i] = None       # slot freed; next step refills
+        return len(active)
+
+    def run(self, requests: List[Request], max_steps: int = 10_000
+            ) -> List[Request]:
+        for r in requests:
+            self.submit(r)
+        steps = 0
+        while (self.queue or any(s is not None for s in self.slots)) \
+                and steps < max_steps:
+            self.step()
+            steps += 1
+        return requests
+
+    # ------------------------------------------------------------ stats ---
+    def stats(self) -> Dict[str, float]:
+        return {"decode_steps": self._steps,
+                "tokens_generated": self._generated,
+                "slot_utilization": self._generated /
+                max(self._steps * self.B, 1)}

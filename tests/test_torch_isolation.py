@@ -1,0 +1,80 @@
+"""The port stands alone: it imports neither ``jax`` nor anything of the JAX
+package ``repro``, it runs on the card unless asked for the CPU, and its
+kernel modules import on a machine with no CUDA compiler."""
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch import device as devmod  # noqa: E402
+
+SRC = Path(repro_torch.__file__).resolve().parent.parent
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def _run(code: str, env=None) -> subprocess.CompletedProcess:
+    env = dict(os.environ if env is None else env)
+    env["PYTHONPATH"] = str(SRC)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.serving.engine" in mods
+    assert "repro_torch.kernels.flash_attention" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax'"
+            " or m.startswith('jax.') or m == 'repro'"
+            " or m.startswith('repro.'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_device_defaults_to_the_card():
+    if torch.cuda.is_available():
+        assert devmod.resolve(None).type == "cuda"
+    else:
+        with pytest.raises(devmod.NoCudaDevice, match="CUDA card"):
+            devmod.resolve(None)
+        with pytest.raises(devmod.NoCudaDevice):
+            devmod.generator(0)
+    assert devmod.resolve("cpu") == torch.device("cpu")
+
+
+def test_serve_launcher_names_the_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible here")
+    proc = _run("import sys\n"
+                "from repro_torch.launch import serve\n"
+                "sys.exit(serve.main(['--requests', '1']))\n")
+    assert proc.returncode != 0
+    assert "no CUDA card" in proc.stderr
+
+
+def test_kernel_module_imports_without_nvcc(tmp_path):
+    env = dict(os.environ)
+    env["PATH"] = str(tmp_path)             # no nvcc anywhere on it
+    env.pop("CUDA_HOME", None)
+    proc = _run("from repro_torch.kernels import (flash_attention, ops,\n"
+                "    _build)\n"
+                "import torch\n"
+                "q = torch.zeros(1, 16, 4, 32)\n"
+                "ops.flash_attention(q, q[:, :, :2], q[:, :, :2])\n"
+                "assert flash_attention.flash_attention_cuda.launches == 0\n"
+                "assert not _build._LIBS\n", env)
+    assert proc.returncode == 0, proc.stderr

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -48,37 +48,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(*names: str) -> Dict[str, float]:
-    """Compile every named source that is not built yet, all ``nvcc``
-    processes started together. Returns seconds spent per name (0.0 for a
-    library that was already built); raises on any compiler error."""
-    todo = [n for n in names if not library_path(n).exists()]
-    seconds = {n: 0.0 for n in names}
-    if not todo:
-        return seconds
+def build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
+    seconds spent (0.0 for a library that was already built); raises on a
+    compiler error."""
+    out = library_path(name)
+    if out.exists():
+        return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    procs: List = []
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    for n in todo:
-        out = library_path(n)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
-        procs.append((n, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failures = []
-    for n, out, tmp, proc in procs:
-        report, _ = proc.communicate()
-        seconds[n] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(report)
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for csrc/{n}.cu "
-                            f"(exit {proc.returncode}):\n{report}")
-            continue
-        os.replace(tmp, out)
-    if failures:
-        raise RuntimeError("\n".join(failures))
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(CSRC_DIR / f"{name}.cu")],
+                          capture_output=True, text=True, check=False)
+    seconds = time.perf_counter() - t0
+    report = proc.stdout + proc.stderr
+    out.with_suffix(".log").write_text(report)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{report}")
+    os.replace(tmp, out)
     return seconds
 
 

@@ -40,6 +40,28 @@ def make_requests(vocab_size: int, n: int, max_new_tokens: int, seed: int,
             for i in range(n)]
 
 
+WORKLOAD_NEW_TOKENS = 32
+
+
+def workload(cfg, params, n_requests: int, seed: int = 0):
+    """The serving workload that chip_smoke.py and launch/trace_serve.py
+    measure: a fresh engine (batch 4, context 1024) and ``n_requests``
+    requests of 64-1000 prompt tokens and 32 new tokens each."""
+    eng = ServingEngine(cfg, params, batch_size=4, max_context=1024)
+    reqs = make_requests(cfg.vocab_size, n_requests, WORKLOAD_NEW_TOKENS,
+                         seed, prompt_len=(64, 1001))
+    return eng, reqs
+
+
+def run_timed(eng: ServingEngine, reqs: List[Request]) -> float:
+    """Serve ``reqs`` to the end on the card; returns the wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_IDS)

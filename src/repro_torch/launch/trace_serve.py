@@ -3,11 +3,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.trace_serve
 
-The workload is chip_smoke.py's serving phase: qwen3-0.6b at full width,
-bf16, random weights from seed 0, prefill attention through the CUDA kernel,
-batch 4, context 1024, 16 requests of 64-1000 prompt tokens and 32 new
-tokens each. After a two-request warm-up it runs once untraced and once
-traced, and prints one JSON line:
+The workload is chip_smoke.py's serving phase, ``launch.serve.workload``:
+qwen3-0.6b at full width, bf16, random weights from seed 0, prefill
+attention through the CUDA kernel, batch 4, context 1024, 16 requests of
+64-1000 prompt tokens and 32 new tokens each. After a two-request warm-up it
+runs once untraced and once traced, and prints one JSON line:
 
 * ``wall_s`` / ``traced_wall_s``: the two runs' wall times (their difference
   is what the tracing costs);
@@ -28,33 +28,19 @@ from __future__ import annotations
 import bisect
 import json
 import sys
-import time
 from collections import defaultdict
 
-import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import device as devmod
 from repro_torch.configs.registry import get_config
-from repro_torch.launch.serve import make_requests
+from repro_torch.launch.serve import run_timed, workload
 from repro_torch.models import model_api as api
-from repro_torch.serving.engine import ServingEngine
 
 RANGES = ("engine.prefill", "engine.decode_step")
 LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
             "cuLaunchKernelEx")
-
-
-def _serve(cfg, params, n_requests: int) -> float:
-    eng = ServingEngine(cfg, params, batch_size=4, max_context=1024)
-    reqs = make_requests(cfg.vocab_size, n_requests, 32, seed=0,
-                         prompt_len=(64, 1001))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
 
 
 def _spans(events, device_type):
@@ -124,11 +110,11 @@ def main() -> int:
         return 2
     cfg = get_config("qwen3-0.6b").replace(use_pallas=True)
     params = api.init_params(cfg, devmod.generator(0, dev), dev)
-    _serve(cfg, params, 2)                               # warm-up
-    wall_s = _serve(cfg, params, 16)
+    run_timed(*workload(cfg, params, 2, seed=1))         # warm-up
+    wall_s = run_timed(*workload(cfg, params, 16))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        traced_wall_s = _serve(cfg, params, 16)
+        traced_wall_s = run_timed(*workload(cfg, params, 16))
     print(json.dumps(summarize(prof.events(), wall_s, traced_wall_s)))
     return 0
 

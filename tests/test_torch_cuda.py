@@ -6,7 +6,10 @@ that has only PyTorch:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances are those of tests/test_kernels.py: f32 2e-5, bf16 2e-2.
+Tolerances (atol, rtol): f32 2e-5, that of tests/test_kernels.py. bf16
+2e-4 and 2**-7: kernel and plain version both compute in f32 and round the
+output once, so they differ by at most one bf16 step (2**-7 of the value),
+and 2e-4 stays well under a typical |out| (about 1e-2 at S=1024).
 """
 import pytest
 
@@ -17,7 +20,7 @@ import numpy as np  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
-TOL = {"f32": 2e-5, "bf16": 2e-2}
+TOL = {"f32": (2e-5, 2e-5), "bf16": (2e-4, 2 ** -7)}
 TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -51,8 +54,9 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, s, h, kh,
     assert fa.flash_attention_cuda.launches == before + 1
     assert out.dtype == q.dtype and out.shape == q.shape
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
-                               rtol=TOL[dtype])
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.cuda

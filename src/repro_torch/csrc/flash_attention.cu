@@ -20,15 +20,22 @@
 //
 // What this design does about it, and what it leaves for later: the TPU
 // kernel keeps a kv head's whole (T, D) k/v in VMEM and folds the G query
-// heads into its rows. Here one block of 128 threads owns (batch, kv head,
-// q tile of 64 / G positions x G heads = 64 rows) and streams 64-key tiles
-// of k and v through shared memory, so k/v are read from device memory once
-// per q tile and never held whole. Both products run as plain f32 FMA on
-// CUDA cores from shared memory (each thread owns a 4 x 8 score micro-tile
-// and a 4 x D/8 output micro-tile; padded strides keep the shared-memory
-// reads free of bank conflicts). That keeps f32 inputs in IEEE f32 (no
-// TF32), and it runs far below the tensor cores' rate: wgmma with TMA-fed
-// tiles is the later step. Ragged edges (Sq or T not a multiple of a tile)
+// heads into its rows. Here one block owns (batch, kv head, q tile of
+// 64 / G positions x G heads = 64 rows) and streams 64-key tiles of k and v
+// through shared memory, so k/v are read from device memory once per q tile
+// and never held whole. Both products run as plain f32 FMA on CUDA cores
+// from shared memory: the block's threads form 16 row groups x CG column
+// groups, and each thread owns a 4 x 64/CG score micro-tile and a 4 x D/CG
+// output micro-tile; padded strides keep the shared-memory reads free of
+// bank conflicts. D <= 128 runs 128 threads (CG = 8). D = 256 (the hybrid
+// family's local attention) runs 256 threads (CG = 16), so a thread still
+// holds 4 x 16 output accumulators rather than 4 x 32, which would spill;
+// its tiles take 213,760 bytes of shared memory, one block per SM. Shared
+// memory, not registers, limits the blocks per SM at D >= 128, so the
+// launch bounds let the compiler use registers up to one block per SM
+// (without that it held D = 256 to 128 registers and spilled). The f32 FMA
+// keeps f32 inputs in IEEE f32 (no TF32), and it runs far below the tensor
+// cores' rate: wgmma with TMA-fed tiles is the later step. Ragged edges (Sq or T not a multiple of a tile)
 // are masked, not asserted away.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,8 +45,12 @@ namespace {
 
 constexpr int kRows = 64;      // q rows per block: (position, group) pairs
 constexpr int kKv = 64;        // keys per k/v tile
-constexpr int kThreads = 128;  // 16 row groups x 8 column groups
 constexpr float kNegInf = -1e30f;
+
+// column groups per row group: D <= 128 takes 8 (128 threads), D = 256 16
+// (256 threads)
+template <int D>
+constexpr int col_groups() { return D > 128 ? 16 : 8; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -58,14 +69,16 @@ constexpr size_t smem_bytes() {
          (kRows * (D + 1) + kKv * (D + 1) + kKv * D + kRows * (kKv + 1));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int D, int CG = col_groups<D>()>
+__global__ void __launch_bounds__(16 * CG, 1)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, int Sq, int Tk,
               int H, int KH, int causal, int window, float scale) {
   constexpr int DP = D + 1;    // padded row stride of the q and k tiles
   constexpr int PP = kKv + 1;  // padded row stride of the p tile
-  constexpr int CW = D / 8;    // output columns per thread
+  constexpr int kThreads = 16 * CG;
+  constexpr int SC = kKv / CG;  // score columns per thread
+  constexpr int CW = D / CG;    // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + kRows * DP;
@@ -79,8 +92,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x;
-  const int rg = tid >> 3;  // owns rows 4*rg .. 4*rg+3
-  const int cg = tid & 7;   // owns score and output columns cg + 8*j
+  const int rg = tid / CG;  // owns rows 4*rg .. 4*rg+3
+  const int cg = tid % CG;  // owns score and output columns cg + CG*j
 
   // q tile, scaled in f32 as the TPU kernel does; row r is
   // (position q0 + r / G, head kh*G + r % G), and the G heads of one
@@ -137,52 +150,52 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    float s[4][8];
+    float s[4][SC];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < SC; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float qv[4], kv[8];
+      float qv[4], kv[SC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * rg + i) * DP + d];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = ks[(cg + 8 * j) * DP + d];
+      for (int j = 0; j < SC; ++j) kv[j] = ks[(cg + CG * j) * DP + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < SC; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kp = k0 + cg + 8 * j;
+      for (int j = 0; j < SC; ++j) {
+        const int kp = k0 + cg + CG * j;
         bool ok = kp < Tk;
         if (causal) ok = ok && kp <= qpos[i];
         if (window >= 0) ok = ok && kp > qpos[i] - window;
         if (!ok) s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
-      // the 8 threads that share a row are 8 neighbouring lanes
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      // the CG threads that share a row are CG neighbouring lanes
+#pragma unroll
+      for (int o = 1; o < CG; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_new = fmaxf(m[i], mx);
       const float alpha = expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < SC; ++j) {
         const float p = expf(s[i][j] - m_new);
-        ps[(4 * rg + i) * PP + cg + 8 * j] = p;
+        ps[(4 * rg + i) * PP + cg + CG * j] = p;
         rs += p;
       }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+#pragma unroll
+      for (int o = 1; o < CG; o <<= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, o);
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
 #pragma unroll
@@ -197,7 +210,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ps[(4 * rg + i) * PP + c];
 #pragma unroll
-      for (int j = 0; j < CW; ++j) vv[j] = vs[c * D + cg + 8 * j];
+      for (int j = 0; j < CW; ++j) vv[j] = vs[c * D + cg + CG * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -213,7 +226,7 @@ __global__ void __launch_bounds__(kThreads)
     T* dst =
         o + (((size_t)b * Sq + qpos[i]) * H + (size_t)kh * G + r % G) * D;
 #pragma unroll
-    for (int j = 0; j < CW; ++j) store(dst + cg + 8 * j, acc[i][j] / den);
+    for (int j = 0; j < CW; ++j) store(dst + cg + CG * j, acc[i][j] / den);
   }
 }
 
@@ -228,7 +241,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const int BQ = kRows / (H / KH);
   const dim3 grid((Sq + BQ - 1) / BQ, KH, B);
-  flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd<T, D><<<grid, 16 * col_groups<D>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Tk, H, KH, causal,
       window, scale);
@@ -249,6 +262,9 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                            scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, Sq, Tk, H, KH, causal, window,
+                            scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, Sq, Tk, H, KH, causal, window,
                             scale, stream);
     default:
       return cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
-use into ``repro_torch/_build/<name>-<hash>.so`` (the hash covers the source
+use (or all at once by ``build_all``, one ``nvcc`` per source in parallel)
+into ``repro_torch/_build/<name>-<hash>.so`` (the hash covers the source
 and the flags, so an edited source is rebuilt; the directory is listed in
 ``.gitignore``). ``nvcc``'s own report, registers and shared memory per
 kernel from ``-Xptxas -v``, is kept beside the library as ``.log``.
@@ -14,11 +15,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -48,27 +50,52 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+SOURCES = ("flash_attention", "ssd_scan", "rglru_scan")
+
+
+def build_all(names=SOURCES) -> Dict[str, float]:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one ``nvcc`` per source, all started together. Returns the seconds each
+    took from the common start (0.0 for a library that was already built);
+    raises on a compiler error, naming every source that failed."""
+    seconds = {name: 0.0 for name in names}
+    running = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        # nvcc writes its report into the .log; the child keeps the file
+        with open(out.with_suffix(".log"), "w") as log:
+            proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o",
+                                     str(tmp), str(CSRC_DIR / f"{name}.cu")],
+                                    stdout=log, stderr=subprocess.STDOUT)
+        running[name] = (proc, tmp, out)
+    failed = []
+    while running:
+        for name, (proc, tmp, out) in list(running.items()):
+            if proc.poll() is None:
+                continue
+            seconds[name] = time.perf_counter() - t0
+            del running[name]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for csrc/{name}.cu (exit "
+                              f"{proc.returncode}):\n{build_report(name)}")
+            else:
+                os.replace(tmp, out)
+        time.sleep(0.05)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
 def build(name: str) -> float:
     """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
     seconds spent (0.0 for a library that was already built); raises on a
     compiler error."""
-    out = library_path(name)
-    if out.exists():
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC_DIR / f"{name}.cu")],
-                          capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    report = proc.stdout + proc.stderr
-    out.with_suffix(".log").write_text(report)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{report}")
-    os.replace(tmp, out)
-    return seconds
+    return build_all((name,))[name]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -84,3 +111,43 @@ def build_report(name: str) -> str:
     """What ``nvcc -Xptxas -v`` said when the library was built."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def _demangle(names: List[str]) -> List[str]:
+    """C++ names through the toolkit's ``cu++filt`` (or ``c++filt``); the
+    mangled names where neither is found."""
+    for tool in (str(Path(nvcc_path()).parent / "cu++filt"), "c++filt"):
+        if shutil.which(tool) or Path(tool).exists():
+            proc = subprocess.run([tool, *names], capture_output=True,
+                                  text=True, check=False)
+            out = proc.stdout.splitlines()
+            if proc.returncode == 0 and len(out) == len(names):
+                return out
+    return names
+
+
+def ptxas_summary(name: str) -> List[Dict[str, object]]:
+    """Registers, spill bytes and static shared memory of every kernel in
+    ``csrc/<name>.cu``, from what ``nvcc -Xptxas -v`` said when it was
+    built."""
+    rows: List[Dict[str, object]] = []
+    for line in build_report(name).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            rows.append({"function": m.group(1)})
+            continue
+        if not rows:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows[-1]["spill_stores"] = int(m.group(1))
+            rows[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[-1]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["static_smem"] = int(sm.group(1)) if sm else 0
+    for row, full in zip(rows, _demangle([r["function"] for r in rows])):
+        row["function"] = full
+    return rows

@@ -2,18 +2,22 @@
 device: a CUDA tensor goes to the hand-written kernel, a CPU tensor to the
 kernel's plain PyTorch version. Any other device raises.
 
-``flash_attention`` keeps the signature of the JAX package's
-``kernels/ops.py``. ``q_block``/``kv_block`` tile the plain version as they
-tile the Pallas kernel; the CUDA kernel picks its own tiles, and both compute
-the same function.
+``flash_attention``, ``ssd_scan`` and ``rglru_scan`` keep the signatures of
+the JAX package's ``kernels/ops.py``. ``q_block``/``kv_block`` tile the plain
+flash attention as they tile the Pallas kernel, and ``chunk`` is the SSD
+scan's chunk on both routes; the CUDA kernels pick their own tiles, and
+``rglru_scan``'s ``chunk``/``width_block`` (tiles of the Pallas kernel) tile
+neither route: the recurrence is the same function whatever the tiling.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rglru_scan as _rglru
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -29,3 +33,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                          kv_block=kv_block)
     raise ValueError(f"flash_attention runs on cuda or cpu tensors; got "
                      f"{q.device}")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 64
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if x.device.type == "cuda":
+        return _ssd.ssd_scan_cuda(x.contiguous(), dt.float().contiguous(),
+                                  A.float().contiguous(), Bm.contiguous(),
+                                  Cm.contiguous(), chunk=chunk)
+    if x.device.type == "cpu":
+        return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    raise ValueError(f"ssd_scan runs on cuda or cpu tensors; got {x.device}")
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, *, chunk: int = 64,
+               width_block: int = 128) -> torch.Tensor:
+    del chunk, width_block
+    if a.device.type == "cuda":
+        return _rglru.rglru_scan_cuda(a.float().contiguous(),
+                                      b.float().contiguous())
+    if a.device.type == "cpu":
+        return _rglru.rglru_scan_plain(a, b)
+    raise ValueError(f"rglru_scan runs on cuda or cpu tensors; got "
+                     f"{a.device}")

@@ -1,12 +1,13 @@
-"""Plain PyTorch oracle for the flash attention kernel: the twin of
-``flash_attention_ref`` in the JAX package's ``kernels/ref.py``.
+"""Plain PyTorch oracles for the port's kernels: the twins of
+``flash_attention_ref``, ``ssd_ref`` and ``rglru_ref`` in the JAX package's
+``kernels/ref.py``.
 
-Deliberately naive (full (Sq, T) scores, f32): a correctness reference, not
-a performance path.
+Deliberately naive (full (Sq, T) scores, sequential recurrences, f32):
+correctness references, not performance paths.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,3 +34,44 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor,
+            h0: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSD recurrence (the definitionally-correct oracle).
+
+    x: (B,S,H,P); dt: (B,S,H) post-softplus; A: (H,)<0; Bm/Cm: (B,S,G,N).
+    Returns (y: (B,S,H,P) f32, final_state: (B,H,P,N) f32).
+    """
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    hpg = h // g
+    xf, dtf, af = x.float(), dt.float(), A.float()
+    Bf = Bm.float().repeat_interleave(hpg, dim=2)          # (B,S,H,N)
+    Cf = Cm.float().repeat_interleave(hpg, dim=2)
+    state = (h0.float() if h0 is not None
+             else torch.zeros(b, h, p, n, device=x.device))
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * af[None, :])          # (B,H)
+        state = (state * decay[..., None, None]
+                 + (dtf[:, t, :, None] * xf[:, t])[..., None]
+                 * Bf[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Cf[:, t]))
+    return torch.stack(ys, dim=1), state
+
+
+def rglru_ref(a: torch.Tensor, b: torch.Tensor,
+              h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sequential linear recurrence h_t = a_t*h_{t-1} + b_t. a,b: (B,S,W)."""
+    bs, s, w = a.shape
+    h = (h0.float() if h0 is not None
+         else torch.zeros(bs, w, device=a.device))
+    af, bf = a.float(), b.float()
+    hs = []
+    for t in range(s):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)

@@ -5,11 +5,17 @@ port, on the CUDA card unless ``--device cpu`` is given.
         --requests 16 --batch-size 4                  # reduced width, card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --full  # full width
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b
 
-Like the JAX launcher it serves ``cfg.reduced()`` unless ``--full`` is given.
-Prefill attention takes the port's kernel route (``cfg.use_pallas``): the
-CUDA kernel on the card, its plain PyTorch version on the CPU. Weights are
-random, drawn from ``--seed`` with an explicit generator.
+The dense (qwen3, yi, llama3), SSM (mamba2-2.7b) and hybrid
+(recurrentgemma-9b) families are served; the others raise
+``NotImplementedError``. Like the JAX launcher it serves ``cfg.reduced()``
+unless ``--full`` is given. Prefill takes the port's kernel route
+(``cfg.use_pallas``: flash attention, the SSD scan, the RG-LRU scan): the
+CUDA kernels on the card, their plain PyTorch versions on the CPU. Weights
+are random, drawn from ``--seed`` with an explicit generator.
 """
 from __future__ import annotations
 

@@ -1,13 +1,18 @@
 """Where the serving time goes on the card: one serving run traced with
 ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.trace_serve
+    PYTHONPATH=src python -m repro_torch.launch.trace_serve [--arch ARCH] \
+        [--requests N]
 
 The workload is chip_smoke.py's serving phase, ``launch.serve.workload``:
-qwen3-0.6b at full width, bf16, random weights from seed 0, prefill
-attention through the CUDA kernel, batch 4, context 1024, 16 requests of
-64-1000 prompt tokens and 32 new tokens each. After a two-request warm-up it
-runs once untraced and once traced, and prints one JSON line:
+``--arch`` (qwen3-0.6b, mamba2-2.7b or recurrentgemma-9b; default
+qwen3-0.6b) at full width, bf16, random weights from seed 0, prefill through
+the CUDA kernels, batch 4, context 1024, 16 requests (``--requests``) of
+64-1000 prompt tokens and 32 new tokens each. The profiler's event list
+grows with the PyTorch ops a step runs: mamba2-2.7b's traced run of 16
+requests did not end within 7 minutes on an H100 host, so its trace takes
+8. After a two-request warm-up it runs once untraced and once traced, and
+prints one JSON line:
 
 * ``wall_s`` / ``traced_wall_s``: the two runs' wall times (their difference
   is what the tracing costs);
@@ -25,6 +30,7 @@ It needs the card and stops with an error naming it when there is none.
 """
 from __future__ import annotations
 
+import argparse
 import bisect
 import json
 import sys
@@ -102,20 +108,28 @@ def summarize(events, wall_s: float, traced_wall_s: float) -> dict:
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    choices=("qwen3-0.6b", "mamba2-2.7b",
+                             "recurrentgemma-9b"))
+    ap.add_argument("--requests", type=int, default=16,
+                    help="requests in the untraced and the traced run")
+    args = ap.parse_args(argv)
     try:
         dev = devmod.resolve(None)
     except devmod.NoCudaDevice as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    cfg = get_config("qwen3-0.6b").replace(use_pallas=True)
+    cfg = get_config(args.arch).replace(use_pallas=True)
     params = api.init_params(cfg, devmod.generator(0, dev), dev)
     run_timed(*workload(cfg, params, 2, seed=1))         # warm-up
-    wall_s = run_timed(*workload(cfg, params, 16))
+    wall_s = run_timed(*workload(cfg, params, args.requests))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        traced_wall_s = run_timed(*workload(cfg, params, 16))
-    print(json.dumps(summarize(prof.events(), wall_s, traced_wall_s)))
+        traced_wall_s = run_timed(*workload(cfg, params, args.requests))
+    print(json.dumps({"arch": cfg.name, "requests": args.requests,
+                      **summarize(prof.events(), wall_s, traced_wall_s)}))
     return 0
 
 

@@ -1,1 +1,1 @@
-"""Model families of the port (dense transformer so far)."""
+"""Model families of the port: dense transformer, RG-LRU hybrid, Mamba-2."""

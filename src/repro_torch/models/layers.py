@@ -1,4 +1,4 @@
-"""Core neural building blocks of the dense transformer, ported from the JAX
+"""Core neural building blocks of the model families, ported from the JAX
 package's ``models/layers.py``.
 
 Activations enter and leave in the model dtype (bf16) while softmax and
@@ -143,6 +143,36 @@ def gated_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
 def qk_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Per-head RMS norm over head_dim (qwen3 style). x: (B,S,H,D)."""
     return rmsnorm(x, scale)
+
+
+# ---------------------------------------------------------- conv (SSM) -----
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: (B,S,C); w: (C,K). Returns (B,S,C) in x's
+    dtype, computed in f32.
+
+    Written as K shifted multiply-adds rather than ``F.conv1d``: on the card
+    a float32 convolution goes through cuDNN in TF32 by default."""
+    s, k = x.shape[1], w.shape[-1]
+    xf, wf = x.float(), w.float()
+    out = xf * wf[:, k - 1]
+    for i in range(1, min(k, s + 1)):
+        # tap k-1-i sees the input i steps back; the first i outputs see
+        # the zero padding there
+        out[:, i:] += xf[:, :s - i] * wf[:, k - 1 - i]
+    return out.to(x.dtype)
+
+
+def conv1d_step(x_t: torch.Tensor, buf: torch.Tensor,
+                w: torch.Tensor):
+    """Single-token causal conv with state buffer.
+
+    x_t: (B,C); buf: (B,K-1,C) past inputs; w: (C,K). Returns (y_t (B,C) in
+    x_t's dtype, new_buf). The window takes JAX's promotion of
+    ``concat(buf, x_t)``, so the new buffer is f32 if either input is."""
+    dt = torch.promote_types(buf.dtype, x_t.dtype)
+    window = torch.cat([buf.to(dt), x_t[:, None, :].to(dt)], dim=1)
+    y = torch.einsum("bkc,ck->bc", window.float(), w.float()).to(x_t.dtype)
+    return y, window[:, 1:, :]
 
 
 # ---------------------------------------------------------- kv cache -------

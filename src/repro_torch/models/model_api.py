@@ -1,6 +1,7 @@
 """Unified model API of the port, dispatched on ``cfg.family`` as in the JAX
-package's ``models/model_api.py``. Only the dense family is wired; the
-others raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+package's ``models/model_api.py``. The dense, hybrid (rglru) and SSM
+(mamba2) families are wired; MoE, VLM and encoder-decoder raise
+``NotImplementedError`` (ROADMAP.md, Queue 1).
 
   model_specs(cfg)                       -> Spec tree
   init_params(cfg, generator, device)    -> materialized params
@@ -15,12 +16,13 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import params as pm
+from repro_torch.models import mamba2, rglru
 from repro_torch.models import transformer as tfm
 
-_FAMILY_MODULES = {DENSE: tfm}
+_FAMILY_MODULES = {DENSE: tfm, HYBRID: rglru, SSM: mamba2}
 
 
 def _mod(cfg: ModelConfig):
@@ -28,7 +30,7 @@ def _mod(cfg: ModelConfig):
     if mod is None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port serves the "
-            f"dense family (see ROADMAP.md, Queue 1)")
+            f"{sorted(_FAMILY_MODULES)} families (see ROADMAP.md, Queue 1)")
     return mod
 
 

@@ -17,8 +17,8 @@ import torch
 class Spec(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"        # normal | zeros | ones (| lru_a | ssm_a |
-                                # ssm_dt | pos: other families, not ported)
+    init: str = "normal"        # normal | zeros | ones | lru_a | ssm_a |
+                                # ssm_dt (| pos: whisper, not ported)
     scale: float = 1.0          # multiplier on fan-in-scaled normal
 
 
@@ -36,11 +36,29 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_index(tree, i: int):
+    """Slice i of every leaf of a stacked tree (views, no copy)."""
+    return tree_map(lambda t: t[i], tree)
+
+
 def stack(n: int, tree):
     """Prepend a stacked 'layers' dim of size n to every Spec in the tree."""
     return tree_map(
         lambda s: Spec((n,) + s.shape, ("layers",) + s.axes, s.init, s.scale),
         tree)
+
+
+# (low, high, transform) of the uniform initialisers, as in the JAX package's
+# params.py: RG-LRU Lambda (a in [0.9, 0.999], Lambda = softplus^-1 of
+# -log(a)/8), Mamba-2 A_log (A in [1, 16)) and dt bias (softplus^-1 of dt,
+# log dt uniform in [log 1e-3, log 1e-1]).
+_UNIFORM = {
+    "lru_a": (0.9, 0.999, lambda u: torch.log(torch.expm1(-torch.log(u)
+                                                          / 8.0))),
+    "ssm_a": (1.0, 16.0, torch.log),
+    "ssm_dt": (math.log(1e-3), math.log(1e-1),
+               lambda u: torch.log(torch.expm1(torch.exp(u)))),
+}
 
 
 def _init_leaf(s: Spec, generator: torch.Generator, dtype: torch.dtype,
@@ -49,6 +67,12 @@ def _init_leaf(s: Spec, generator: torch.Generator, dtype: torch.dtype,
         return torch.zeros(s.shape, dtype=dtype, device=device)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=dtype, device=device)
+    if s.init in _UNIFORM:
+        # a uniform draw in f32, then the JAX package's transform
+        lo, hi, transform = _UNIFORM[s.init]
+        u = torch.rand(s.shape, generator=generator, dtype=torch.float32,
+                       device=generator.device) * (hi - lo) + lo
+        return transform(u).to(device=device, dtype=dtype)
     if s.init != "normal":
         raise NotImplementedError(
             f"initializer {s.init!r} belongs to a model family the port has "

@@ -21,14 +21,14 @@ import torch
 from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as nn
-from repro_torch.models.params import Spec, stack
+from repro_torch.models.params import Spec, stack, tree_index
 
 
 def _dense_only(cfg: ModelConfig):
     if cfg.family != DENSE:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port serves the "
-            f"dense family (see ROADMAP.md, Queue 1)")
+            f"family {cfg.family!r} is not ported yet; the port's "
+            f"transformer serves the dense family (see ROADMAP.md, Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -136,15 +136,6 @@ def ffn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _layer(params: Dict, i: int) -> Dict:
-    """Layer i's slice of the stacked layer parameters (views, no copy)."""
-    def go(t):
-        if isinstance(t, dict):
-            return {k: go(v) for k, v in t.items()}
-        return t[i]
-    return go(params["layers"])
-
-
 def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
     _dense_only(cfg)
     return params["embed"][batch["tokens"]]
@@ -158,7 +149,7 @@ def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
     positions = torch.arange(s, device=embeds.device)
     x, ks, vs = embeds, [], []
     for i in range(cfg.num_layers):
-        p = _layer(params, i)
+        p = tree_index(params["layers"], i)
         x, (k, v) = attn_block(cfg, p, x, positions)
         x = ffn_block(cfg, p, x)
         if collect_kv:
@@ -304,7 +295,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
     k_pos = torch.where(slots[None, :] == slot[:, None], pos[:, None],
                         cache["k_pos"])
     for i in range(cfg.num_layers):
-        p = _layer(params, i)
+        p = tree_index(params["layers"], i)
         h = nn.rmsnorm(x, p["ln1"])
         q, k, v = _project_qkv(cfg, p["attn"], h, positions)
         kc = nn.masked_cache_update(cache["k"][i], k, slot)

@@ -9,8 +9,9 @@ bucketed prompt lengths, and the resulting single-request cache is written
 into the live batch cache.
 
 The engine runs where its parameters lie. The batch cache is updated IN
-PLACE: ``_insert_cache`` writes a new request's cache into its slot, and each
-decode step writes one k/v row per layer (models/transformer.decode_step).
+PLACE: ``_insert_cache`` writes a new request's cache into its slot, and a
+decode step writes one k/v row per attention layer (and, for the SSM family,
+its states) in place (models/*.decode_step).
 Its prefill and decode calls are ``torch.profiler`` ranges
 (``engine.prefill``, ``engine.decode_step``) that launch/trace_serve.py
 reads; with no profiler running they cost a function call each.
@@ -67,6 +68,7 @@ class ServingEngine:
         self.clock = clock
         self.queue: Deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * batch_size
+        self.specs = api.cache_specs(cfg, batch_size, max_context)
         self.cache = api.init_cache(cfg, batch_size, max_context,
                                     device=self.device)
         self._steps = 0
@@ -109,13 +111,21 @@ class ServingEngine:
             self.slots[slot] = req
 
     def _insert_cache(self, slot: int, small: Dict):
-        """Write a batch=1 cache into batch slot ``slot``, in place. k/v are
-        (L,B,cap,KH,D) with batch on axis 1; k_pos (B,cap) and pos (B,) are
-        batch-leading."""
-        self.cache["k"][:, slot] = small["k"][:, 0]
-        self.cache["v"][:, slot] = small["v"][:, 0]
-        self.cache["k_pos"][slot] = small["k_pos"][0]
-        self.cache["pos"][slot] = small["pos"][0]
+        """Write a batch=1 cache into batch slot ``slot``, in place, casting
+        to the live cache's dtype. Each leaf's batch axis is where its
+        ``Spec`` in ``api.cache_specs`` names "batch": axis 1 of the
+        layer-stacked leaves (k/v, SSM and RG-LRU states), axis 0 of the
+        batch-leading ones (k_pos, pos, the hybrid's tail states). The JAX
+        engine guesses the axis by shape instead."""
+        def ins(spec, big, one):
+            if isinstance(spec, dict):
+                for k in spec:
+                    ins(spec[k], big[k], one[k])
+                return
+            ax = spec.axes.index("batch")
+            big.select(ax, slot).copy_(one.select(ax, 0))
+
+        ins(self.specs, self.cache, small)
 
     # ------------------------------------------------------------- churn --
     @torch.inference_mode()

@@ -6,10 +6,20 @@ that has only PyTorch:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances (atol, rtol): f32 2e-5, that of tests/test_kernels.py. bf16
-2e-4 and 2**-7: kernel and plain version both compute in f32 and round the
-output once, so they differ by at most one bf16 step (2**-7 of the value),
-and 2e-4 stays well under a typical |out| (about 1e-2 at S=1024).
+Tolerances (atol, rtol), those of chip_smoke.py:
+
+* flash attention: f32 2e-5, that of tests/test_kernels.py. bf16 2e-4 and
+  2**-7: kernel and plain version both compute in f32 and round the output
+  once, so they differ by at most one bf16 step (2**-7 of the value), and
+  2e-4 stays well under a typical |out| (about 1e-2 at S=1024, 5e-3 at
+  D=256 under a 2048 window).
+* SSD scan: f32 1e-4 x mean|out| and 1e-5 (the plain f32 chunked scan is
+  3.6e-5 from a float64 one at full width, where mean|y| is 3.1: 1.2e-5 of
+  the mean); bf16 y 1e-3 x mean|out| and 2**-7 (one bf16 rounding of the
+  same f32 value). The final state is f32 either way.
+* RG-LRU scan: 2e-5 x mean|out| and 1e-5 (the kernel chains 8 segments;
+  emulated in f32 on the CPU that is 3.8e-6 from the sequential scan at
+  S=1024, W=4096, where mean|h| is 2.5).
 """
 import pytest
 
@@ -19,6 +29,8 @@ import numpy as np  # noqa: E402
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 TOL = {"f32": (2e-5, 2e-5), "bf16": (2e-4, 2 ** -7)}
 TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -41,6 +53,9 @@ def cuda_device():
     (128, 4, 4, 32, False, None),
     (100, 4, 2, 32, True, 40),
     (1024, 16, 8, 128, True, None),
+    (128, 16, 1, 256, True, 2048),        # the hybrid's local attention
+    (1024, 16, 1, 256, True, 2048),
+    (4096, 16, 1, 256, True, 2048),       # the window masks
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, s, h, kh,
                                               d, causal, window):
@@ -68,3 +83,102 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 16, 4, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         fa.flash_attention_cuda(q, q, q)
+
+
+def _close_scaled(got, want, frac, rtol):
+    """|got - want| <= frac * mean|want| + rtol * |want|."""
+    want = want.float()
+    atol = frac * float(want.abs().mean())
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+SSD_TOL = {"f32": (1e-4, 1e-5), "bf16": (1e-3, 2 ** -7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 64, 2, 16, 1, 16, 16),            # tests/test_kernels.py:69-73
+    (2, 128, 4, 32, 2, 16, 32),
+    (1, 256, 8, 16, 1, 32, 64),
+    (1, 256, 80, 64, 1, 128, 256),        # mamba2-2.7b at full width
+    (1, 1024, 80, 64, 1, 128, 256),
+])
+def test_ssd_scan_kernel_matches_plain(cuda_device, dtype, b, s, h, p, g, n,
+                                       chunk):
+    rng = np.random.default_rng(s + h)
+    x = torch.from_numpy(rng.normal(size=(b, s, h, p))).to(cuda_device,
+                                                           TORCH[dtype])
+    dt = torch.from_numpy(np.abs(rng.normal(size=(b, s, h))) * 0.1
+                          + 0.01).float().to(cuda_device)
+    A = torch.from_numpy(-np.abs(rng.normal(size=h)) - 0.1).float().to(
+        cuda_device)
+    Bm, Cm = (torch.from_numpy(rng.normal(size=(b, s, g, n))).to(
+        cuda_device, TORCH[dtype]) for _ in range(2))
+    before = ssd.ssd_scan_cuda.launches
+    y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_cuda.launches == before + 1
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert fin.dtype == torch.float32 and fin.shape == (b, h, p, n)
+    yw, finw = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    _close_scaled(y, yw, *SSD_TOL[dtype])
+    _close_scaled(fin, finw, *SSD_TOL["f32"])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_large_decay_stays_finite(cuda_device):
+    """|dt*A| sums past 88 inside a chunk: exp(cum_i - cum_j) above the
+    diagonal would be inf in f32."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(1, 128, 2, 16))).float().to(
+        cuda_device)
+    dt = torch.full((1, 128, 2), 2.0, device=cuda_device)
+    A = torch.tensor([-4.0, -0.5], device=cuda_device)
+    Bm, Cm = (torch.from_numpy(rng.normal(size=(1, 128, 1, 16))).float().to(
+        cuda_device) for _ in range(2))
+    y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(fin).all()
+    yw, finw = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=64)
+    _close_scaled(y, yw, *SSD_TOL["f32"])
+    _close_scaled(fin, finw, *SSD_TOL["f32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,w,gate", [
+    (1, 64, 32, "test"),                  # tests/test_kernels.py:96-100
+    (2, 128, 64, "test"),
+    (1, 256, 128, "test"),
+    (1, 64, 4096, "model"),               # recurrentgemma-9b's width
+    (1, 1024, 4096, "model"),
+])
+def test_rglru_scan_kernel_matches_plain(cuda_device, b, s, w, gate):
+    rng = np.random.default_rng(s + w)
+    if gate == "test":
+        a = 1 / (1 + np.exp(-rng.normal(size=(b, s, w)))) * 0.98 + 0.01
+    else:                                 # the model's a lies in [0.9, 1)
+        a = rng.uniform(0.9, 1.0, size=(b, s, w))
+    a = torch.from_numpy(a).float().to(cuda_device)
+    bb = torch.from_numpy(rng.normal(size=(b, s, w))).float().to(cuda_device)
+    before = rg.rglru_scan_cuda.launches
+    h = ops.rglru_scan(a, bb)
+    torch.cuda.synchronize()
+    assert rg.rglru_scan_cuda.launches == before + 1
+    assert h.dtype == torch.float32 and h.shape == a.shape
+    _close_scaled(h, rg.rglru_scan_plain(a, bb), 2e-5, 1e-5)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_reject_what_they_do_not_take(cuda_device):
+    x = torch.zeros(1, 64, 2, 16, device=cuda_device)
+    dt = torch.zeros(1, 64, 2, device=cuda_device)
+    A = torch.zeros(2, device=cuda_device)
+    bm = torch.zeros(1, 64, 1, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="state width"):
+        ssd.ssd_scan_cuda(x, dt, A, bm, bm, chunk=16)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd.ssd_scan_cuda(x, dt, A, bm[..., :16], bm[..., :16], chunk=48)
+    a = torch.zeros(1, 8, 4, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="f32"):
+        rg.rglru_scan_cuda(a, a)

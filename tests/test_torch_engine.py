@@ -1,14 +1,26 @@
 """The port's serving engine: twins of the JAX engine's tests in
-tests/test_substrate.py, plus teacher-forced parity with the JAX engine.
+tests/test_substrate.py, plus teacher-forced parity with the JAX engine, for
+the dense family (reduced qwen3-0.6b) and the recurrent ones (reduced
+mamba2-2.7b, and recurrentgemma-9b at ``num_layers=5``: one super-block and
+both tail blocks).
 
 Parameters are the JAX package's ``init_params(cfg, PRNGKey(0))`` (bf16)
 carried across by ``params_from_numpy``. Teacher forcing feeds the JAX
 engine's generated tokens through the port's prefill and decode steps and
 compares the logits step by step at the bf16 tolerance of
-tests/test_torch_model.py (2**-5 of the largest reference logit, abs); a
-token where the JAX engine's top two logits are closer than that tolerance is
-a tie the two frameworks may break differently, and is not compared by
-argmax.
+tests/test_torch_model.py (2**-5 of the largest reference logit, abs, at its
+2 layers), scaled by sqrt(layers / 2) for deeper stacks: the two frameworks'
+bf16 roundings differ layer by layer and their gap grows as a random walk
+over the layers (at the hybrid's 5 layers each framework's bf16 logits lie
+up to 0.034 of the largest logit from an f32 run, and the two up to 0.034
+from each other). A token where the JAX engine's top two logits are closer
+than that tolerance is a tie the two frameworks may break differently, and
+is not compared by argmax.
+
+The recurrent families do not read ``prompt_lens`` in prefill, in the JAX
+package as in the port: the engine's pad tokens run through the recurrence,
+the first token comes from the last pad position and decoding starts at the
+bucket length. The tests pin that, on prompts whose lengths are not buckets.
 """
 import pytest
 
@@ -22,7 +34,10 @@ from repro.configs import registry as jreg  # noqa: E402
 from repro.models import model_api as japi  # noqa: E402
 from repro.serving import engine as jeng  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
+from repro_torch.models import mamba2 as tm2  # noqa: E402
 from repro_torch.models import model_api as tapi  # noqa: E402
+from repro_torch.models import params as tpm  # noqa: E402
+from repro_torch.models import rglru as trg  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
@@ -92,29 +107,28 @@ def test_engine_continuous_batching_and_consistency(port_params, use_pallas):
         toks.append(expect)
 
 
-def test_teacher_forced_parity_with_jax_engine(jax_params, port_params):
-    jcfg = jreg.get_config(ARCH).reduced()
-    tcfg = treg.get_config(ARCH).reduced()
-    jreqs = _requests(jeng.Request, 2, 10, 30, 5, seed=3)
-    jeng.ServingEngine(jcfg, jax_params, batch_size=2,
-                       max_context=64).run(jreqs)
+def _teacher_forced(jcfg, tcfg, jax_params, port_params, jreqs, ctx):
+    """Feed the JAX engine's tokens through the port's prefill and decode
+    steps; returns how many steps were compared by argmax."""
+    depth = (tcfg.num_layers / 2) ** 0.5      # 1 at the dense test's depth
     compared = 0
     for r in jreqs:
         n = len(r.prompt)
-        pad = 16 if n <= 16 else 32
+        pad = next(b for b in _buckets(ctx) if n <= b)
         tokens = np.zeros((1, pad), np.int64)
         tokens[0, :n] = r.prompt
         batch = {"tokens": tokens, "prompt_lens": np.array([n], np.int32)}
         jlog, jc = japi.prefill(jcfg, jax_params,
                                 {k: jnp.asarray(v) for k, v in batch.items()},
-                                64)
+                                ctx)
         tlog, tc = tapi.prefill(tcfg, port_params,
                                 {k: torch.from_numpy(v)
-                                 for k, v in batch.items()}, 64)
+                                 for k, v in batch.items()}, ctx)
+        np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
         for step, tok in enumerate(r.out_tokens):
             want = np.asarray(jlog, np.float32).reshape(-1)
             got = tlog.float().numpy().reshape(-1)
-            tol = 2 ** -5 * float(np.abs(want).max())
+            tol = depth * 2 ** -5 * float(np.abs(want).max())
             np.testing.assert_allclose(got, want, atol=tol, rtol=0)
             top2 = np.sort(want)[-2:]
             if top2[1] - top2[0] > tol:
@@ -126,4 +140,89 @@ def test_teacher_forced_parity_with_jax_engine(jax_params, port_params):
                                         {"token": jnp.asarray(feed)})
             tlog, tc = tapi.decode_step(tcfg, port_params, tc,
                                         {"token": torch.from_numpy(feed)})
+    return compared
+
+
+def test_teacher_forced_parity_with_jax_engine(jax_params, port_params):
+    jcfg = jreg.get_config(ARCH).reduced()
+    tcfg = treg.get_config(ARCH).reduced()
+    jreqs = _requests(jeng.Request, 2, 10, 30, 5, seed=3)
+    jeng.ServingEngine(jcfg, jax_params, batch_size=2,
+                       max_context=64).run(jreqs)
+    compared = _teacher_forced(jcfg, tcfg, jax_params, port_params, jreqs, 64)
     assert compared >= len(jreqs)     # not every step a near-tie
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families
+# ---------------------------------------------------------------------------
+
+RECURRENT = {"mamba2": ("mamba2-2.7b", 2), "rglru-5": ("recurrentgemma-9b", 5)}
+
+
+def _rec_cfgs(name, **kw):
+    arch, layers = RECURRENT[name]
+    return tuple(c.reduced().replace(num_layers=layers, **kw)
+                 for c in (jreg.get_config(arch), treg.get_config(arch)))
+
+
+@pytest.fixture(scope="module")
+def rec_models():
+    out = {}
+    for name in RECURRENT:
+        jcfg, tcfg = _rec_cfgs(name)
+        jp = japi.init_params(jcfg, jax.random.PRNGKey(0))
+        out[name] = (jp, params_from_numpy(
+            tcfg, jax.tree_util.tree_map(np.asarray, jp), device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("name", list(RECURRENT))
+def test_recurrent_teacher_forced_parity_with_jax_engine(rec_models, name):
+    """Prompts of 10 and 23 tokens (buckets 16 and 32): the JAX engine's
+    tokens, fed through the port, give the JAX logits at every step, and
+    both engines start decoding at the bucket length."""
+    jcfg, tcfg = _rec_cfgs(name)
+    jp, tp = rec_models[name]
+    rng = np.random.default_rng(5)
+    jreqs = [jeng.Request(rid=i, prompt=rng.integers(1, 512, n).astype(
+        np.int32), max_new_tokens=5) for i, n in enumerate((10, 23))]
+    jeng_ = jeng.ServingEngine(jcfg, jp, batch_size=2, max_context=64)
+    teng = ServingEngine(tcfg, tp, batch_size=2, max_context=64)
+    for r in jreqs:
+        jeng_.submit(r)
+        teng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=5))
+    jeng_._admit()
+    teng._admit()
+    np.testing.assert_array_equal(np.asarray(jeng_.cache["pos"]), [16, 32])
+    np.testing.assert_array_equal(teng.cache["pos"].numpy(), [16, 32])
+    jeng_.run([])                     # serve the admitted requests to the end
+    assert all(r.done and len(r.out_tokens) == 5 for r in jreqs)
+    compared = _teacher_forced(jcfg, tcfg, jp, tp, jreqs, 64)
+    assert compared >= len(jreqs)     # not every step a near-tie
+
+
+@pytest.mark.parametrize("name,layers", [("mamba2", 2), ("rglru-5", 6)])
+def test_recurrent_engine_batch_equals_stacked_layers(name, layers):
+    """batch_size == the stacked layer count (mamba2's 2 layers; the
+    hybrid's 2 super-blocks at num_layers=6): every cache leaf is written
+    into its slot by its spec's batch axis. Each request's tokens equal a
+    greedy full forward over its bucket-padded prompt (f32 parameters, so
+    no bf16 near-tie decides a token)."""
+    cfg = _rec_cfgs(name)[1].replace(num_layers=layers)
+    params = tpm.init(tapi.model_specs(cfg), torch.Generator().manual_seed(0),
+                      torch.float32, "cpu")
+    eng = ServingEngine(cfg, params, batch_size=2, max_context=64)
+    reqs = _requests(Request, 3, 5, 30, 4, seed=6)
+    eng.run(reqs)
+    assert all(r.done and len(r.out_tokens) == 4 for r in reqs)
+    mod = tm2 if cfg.family == "ssm" else trg
+    for r in reqs:
+        n = len(r.prompt)
+        seq = list(r.prompt) + [0] * (eng._bucket_len(n) - n)
+        for expect in r.out_tokens:
+            h, _ = mod.forward_hidden(cfg, params,
+                                      params["embed"][torch.tensor([seq])])
+            logits = ttfm.logits_fn(cfg, params, h[:, -1:, :])
+            assert int(torch.argmax(logits[0, -1])) == expect, r.rid
+            seq.append(expect)

@@ -47,7 +47,8 @@ def _close(got, want, tol):
     (1, 128, 4, 4, 32, 64, 64),       # MHA
     (2, 256, 8, 2, 64, 64, 128),      # GQA, rectangular blocks
     (1, 64, 4, 1, 32, 64, 32),        # MQA, single q block
-])
+    (1, 128, 16, 1, 256, 64, 64),     # the hybrid's local attention: MQA,
+])                                    # head_dim 256
 def test_flash_attention_causal_matches_pallas(dtype, b, s, h, kh, d, qb,
                                                kb):
     (jq, q), (jk, k), (jv, v) = _inputs(
@@ -114,3 +115,16 @@ def test_shapes_are_checked():
     with pytest.raises(ValueError):
         ops.flash_attention(q, torch.zeros(1, 16, 3, 32),
                             torch.zeros(1, 16, 3, 32))
+
+
+def test_flash_attention_d256_window_masks():
+    """The hybrid family's shape (16 q heads, 1 kv head, head_dim 256) with
+    a window shorter than the sequence."""
+    (jq, q), (jk, k), (jv, v) = _inputs(
+        11, [(1, 192, 16, 256), (1, 192, 1, 256), (1, 192, 1, 256)], "f32")
+    out = ops.flash_attention(q, k, v, causal=True, window=64, q_block=64,
+                              kv_block=64)
+    _close(out, jops.flash_attention(jq, jk, jv, causal=True, window=64,
+                                     q_block=64, kv_block=64), TOL["f32"])
+    _close(out, jref.flash_attention_ref(jq, jk, jv, causal=True, window=64),
+           TOL["f32"])

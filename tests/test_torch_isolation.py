@@ -32,7 +32,9 @@ def _run(code: str, env=None) -> subprocess.CompletedProcess:
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.serving.engine" in mods
-    assert "repro_torch.kernels.flash_attention" in mods
+    for name in ("kernels.flash_attention", "kernels.ssd_scan",
+                 "kernels.rglru_scan", "models.mamba2", "models.rglru"):
+        assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -71,10 +73,17 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     env["PATH"] = str(tmp_path)             # no nvcc anywhere on it
     env.pop("CUDA_HOME", None)
     proc = _run("from repro_torch.kernels import (flash_attention, ops,\n"
-                "    _build)\n"
+                "    rglru_scan, ssd_scan, _build)\n"
                 "import torch\n"
                 "q = torch.zeros(1, 16, 4, 32)\n"
                 "ops.flash_attention(q, q[:, :, :2], q[:, :, :2])\n"
+                "x = torch.zeros(1, 16, 2, 8)\n"
+                "bc = torch.zeros(1, 16, 1, 8)\n"
+                "ops.ssd_scan(x, x[..., 0], torch.zeros(2), bc, bc, "
+                "chunk=16)\n"
+                "ops.rglru_scan(q[..., 0], q[..., 0])\n"
                 "assert flash_attention.flash_attention_cuda.launches == 0\n"
+                "assert ssd_scan.ssd_scan_cuda.launches == 0\n"
+                "assert rglru_scan.rglru_scan_cuda.launches == 0\n"
                 "assert not _build._LIBS\n", env)
     assert proc.returncode == 0, proc.stderr

@@ -1,8 +1,8 @@
 """The port's model layers against the JAX package's ``models/layers.py`` on
 the same numpy-seeded inputs.
 
-f32 tolerance: 1e-5 abs/rel for norms and attention (both sides compute in
-f32; only summation order differs), 1e-4 for rope (XLA and PyTorch evaluate
+f32 tolerance: 1e-5 abs/rel for norms, attention and the causal conv (both
+sides compute in f32; only summation order differs), 1e-4 for rope (XLA and PyTorch evaluate
 pow/cos/sin with different f32 rounding, a few ulps of an angle up to 200
 rad). bf16: 2**-7 rel (one bf16 rounding of the f32 result may land on the
 neighbouring value) plus 1e-6 abs.
@@ -126,3 +126,52 @@ def test_masked_cache_update_in_place():
     want = jl.masked_cache_update(jc, jn, jnp.asarray(slot))
     assert out is tc                      # written in place
     np.testing.assert_array_equal(_np(out), _np(want))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("s", [1, 3, 17])
+def test_causal_conv1d(dtype, s):
+    """Depthwise K=4 causal conv, computed in f32 and cast to x's dtype; s
+    shorter than K too."""
+    rng = np.random.default_rng(6)
+    jx, tx = _pair(rng, (2, s, 24), dtype)
+    jw, tw = _pair(rng, (24, 4), dtype)
+    out = tl.causal_conv1d(tx, tw)
+    assert out.dtype == tx.dtype and out.shape == tx.shape
+    tol = F32 if dtype == "f32" else dict(atol=1e-6, rtol=2 ** -7)
+    np.testing.assert_allclose(_np(out), _np(jl.causal_conv1d(jx, jw)),
+                               **tol)
+
+
+@pytest.mark.parametrize("x_dtype,buf_dtype", [
+    ("f32", "f32"),      # mamba2's cache is f32 throughout
+    ("bf16", "f32"),     # bf16 weights over mamba2's f32 cache
+    ("bf16", "bf16"),    # the hybrid's bf16 conv buffers
+    ("f32", "bf16"),     # f32 weights over the hybrid's bf16 buffers
+])
+def test_conv1d_step(x_dtype, buf_dtype):
+    """One decode step of the conv: the new buffer takes JAX's promotion of
+    concat(buf, x_t), the output x_t's dtype; and steps chained from a
+    zero buffer equal the full causal conv."""
+    rng = np.random.default_rng(7)
+    jx, tx = _pair(rng, (2, 24), x_dtype)
+    jb, tb = _pair(rng, (2, 3, 24), buf_dtype)
+    jw, tw = _pair(rng, (24, 4), x_dtype)
+    y, buf = tl.conv1d_step(tx, tb, tw)
+    jy, jbuf = jl.conv1d_step(jx, jb, jw)
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    assert names[y.dtype] == str(jy.dtype)
+    assert names[buf.dtype] == str(jbuf.dtype)
+    tol = F32 if x_dtype == "f32" else dict(atol=1e-6, rtol=2 ** -7)
+    np.testing.assert_allclose(_np(y), _np(jy), **tol)
+    np.testing.assert_array_equal(_np(buf), _np(jbuf))
+
+    xs = torch.from_numpy(rng.normal(size=(2, 6, 24)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(24, 4)).astype(np.float32))
+    state = torch.zeros(2, 3, 24)
+    steps = []
+    for t in range(6):
+        out, state = tl.conv1d_step(xs[:, t], state, w)
+        steps.append(out)
+    np.testing.assert_allclose(torch.stack(steps, 1).numpy(),
+                               tl.causal_conv1d(xs, w).numpy(), **F32)

@@ -1,18 +1,14 @@
 """Where the serving time goes on the card: one serving run traced with
 ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.trace_serve [--arch ARCH] \
-        [--requests N]
+    PYTHONPATH=src python -m repro_torch.launch.trace_serve [--arch ARCH]
 
 The workload is chip_smoke.py's serving phase, ``launch.serve.workload``:
 ``--arch`` (qwen3-0.6b, mamba2-2.7b or recurrentgemma-9b; default
 qwen3-0.6b) at full width, bf16, random weights from seed 0, prefill through
-the CUDA kernels, batch 4, context 1024, 16 requests (``--requests``) of
-64-1000 prompt tokens and 32 new tokens each. The profiler's event list
-grows with the PyTorch ops a step runs: mamba2-2.7b's traced run of 16
-requests did not end within 7 minutes on an H100 host, so its trace takes
-8. After a two-request warm-up it runs once untraced and once traced, and
-prints one JSON line:
+the CUDA kernels, batch 4, context 1024, 16 requests of 64-1000 prompt
+tokens and 32 new tokens each. After a two-request warm-up it runs once
+untraced and once traced, and prints one JSON line:
 
 * ``wall_s`` / ``traced_wall_s``: the two runs' wall times (their difference
   is what the tracing costs);
@@ -44,6 +40,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.launch.serve import run_timed, workload
 from repro_torch.models import model_api as api
 
+REQUESTS = 16
 RANGES = ("engine.prefill", "engine.decode_step")
 LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
             "cuLaunchKernelEx")
@@ -113,8 +110,6 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen3-0.6b",
                     choices=("qwen3-0.6b", "mamba2-2.7b",
                              "recurrentgemma-9b"))
-    ap.add_argument("--requests", type=int, default=16,
-                    help="requests in the untraced and the traced run")
     args = ap.parse_args(argv)
     try:
         dev = devmod.resolve(None)
@@ -124,11 +119,11 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch).replace(use_pallas=True)
     params = api.init_params(cfg, devmod.generator(0, dev), dev)
     run_timed(*workload(cfg, params, 2, seed=1))         # warm-up
-    wall_s = run_timed(*workload(cfg, params, args.requests))
+    wall_s = run_timed(*workload(cfg, params, REQUESTS))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        traced_wall_s = run_timed(*workload(cfg, params, args.requests))
-    print(json.dumps({"arch": cfg.name, "requests": args.requests,
+        traced_wall_s = run_timed(*workload(cfg, params, REQUESTS))
+    print(json.dumps({"arch": cfg.name, "requests": REQUESTS,
                       **summarize(prof.events(), wall_s, traced_wall_s)}))
     return 0
 

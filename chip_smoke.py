@@ -1,7 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA card: the FDN
+admission path and the serving paths.
 
     python3 chip_smoke.py
+
+The admission path runs ``examples/batch_scheduling.py``'s stream through
+``repro_torch.launch.batch_scheduling``: 100,000 Poisson arrivals of
+``nodeinfo`` over 600 simulated seconds (seed 42), in 50 ms windows through
+``Gateway.request_batch`` to the paper's five platforms, each window decided
+by the SLO-composite policy, whose decision runs on the card through the
+policy-score kernel K1 (``src/repro_torch/csrc/policy_score.cu``, with K2 in
+the same source).
 
 Three models are served at full width through ``repro_torch.serving.engine``,
 one after another (each one's weights are freed before the next loads):
@@ -17,23 +26,34 @@ one after another (each one's weights are freed before the next loads):
 Phases, each printing its numbers on lines of its own:
 
   1. the card's name and power limit, as nvidia-smi gives them;
-  2. build the three kernel sources from the checkout, one nvcc each, all
+  2. build the four kernel sources from the checkout, one nvcc each, all
      started together; print the seconds and ptxas's registers and spills
      per kernel instance;
   3. hold every kernel against its plain PyTorch version on the cases of
      tests/test_kernels.py and at the serving paths' shapes, each tolerance
-     printed beside the output's mean |value|;
-  4. time every kernel at its path's full-width shape with S=1024 beside
-     its plain version, its bound on the card and, where one PyTorch call
+     printed beside the output's mean |value|; K1 and K2 bit-equal on the
+     cases of ``tests/policy_score_cases.py`` at the admission path's
+     shapes and a registry-scale one;
+  4. time every kernel at its path's full-width shape with S=1024 (K1 and
+     K2 at the admission path's F x P and at F=4096, P=1024) beside its
+     plain version, its bound on the card and, where one PyTorch call
      computes the same function, that call (SDPA for K3: a yardstick the
-     port never calls);
-  5. per model: serve 16 requests (prompts of 64-1000 tokens, 32 new tokens
+     port never calls); time the admission decision as the path makes it,
+     host-to-device copies included;
+  5. admission: every policy picks the same platforms under the numpy
+     backend, the torch backend and torch with the kernel, on
+     tests/test_admission_fastpath.py's randomized platform states; then
+     the 100,000-arrival stream three ways (numpy, torch, torch with K1)
+     with identical outcomes, every kernel's launch count set to 0 just
+     before the K1 run and read just after, and K1's launches equal to the
+     torch decisions;
+  6. per model: serve 16 requests (prompts of 64-1000 tokens, 32 new tokens
      each) at full width, bf16, random weights from seed 0, batch 4,
      context 1024, with every kernel's launch count set to 0 just before
      and read just after, and each kernel's launches per prefill asserted;
-  6. per model: hold the prefill's last-token logits through the kernels
+  7. per model: hold the prefill's last-token logits through the kernels
      against the plain route and an f32 run of the same weights;
-  7. print one line listing every kernel, then the result line.
+  8. print one line listing every kernel, then the result line.
 
 Any failed phase raises, so the script exits non-zero and prints no result
 line. Without a visible card it exits non-zero at once.
@@ -52,10 +72,13 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# the seeded K1/K2 cases that the tests share (tests/policy_score_cases.py)
+sys.path.insert(1, str(ROOT / "tests"))
 
 DEV = "cuda"
 MODELS = ("qwen3-0.6b", "mamba2-2.7b", "recurrentgemma-9b")
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12            # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 # (atol, rtol) of flash attention against its plain version. Both compute
 # in f32 and round the output once to the input dtype, so they differ by
@@ -106,6 +129,14 @@ RGLRU_CASES = [                   # tests/test_kernels.py:96-100, + full width
     # (b, s, w)
     (1, 64, 32), (2, 128, 64), (1, 256, 128), (1, 64, 4096), (1, 1024, 4096),
 ]
+# policy-score kernels: (F functions, P platforms). The admission stream
+# decides F=1 (nodeinfo) over the paper's P=5 platforms; a mixed burst has
+# F <= 10; 37 x 129 crosses the warp width in P; 4096 x 1024 is a
+# registry-scale shape, for the record only.
+POLICY_SHAPES = [(1, 5), (5, 5), (10, 5), (37, 129), (4096, 1024)]
+POLICY_TIMED = [(1, 5), (5, 5), (4096, 1024)]
+POLICY_WEIGHTS = (0.0, 0.1, 0.5)
+STREAM_ARRIVALS = 100_000
 
 
 def say(phase: str, **kw):
@@ -134,9 +165,25 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
+def graph_ms(fn, reps: int = 100) -> float:
+    """Device time per call of ``fn``, with ``reps`` calls captured in one
+    CUDA graph and the graph replayed: no host launch cost between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return event_ms(graph.replay, 10) / reps
+
+
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     """The least time on the card, ms, and which of the two bounds it."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
@@ -382,16 +429,324 @@ def time_rglru():
 
 
 # ---------------------------------------------------------------------------
-# Phases 5 and 6: serve each model; logits
+# Phases 3 and 4 for the admission path: the policy-score kernels K1 and K2
+# ---------------------------------------------------------------------------
+
+
+def _policy_inputs(c):
+    from repro_torch.kernels import policy_score as ps
+    from policy_score_cases import (
+        FUSED_ARGS, PREBUILT_ARGS, prebuilt_columns)
+    m = prebuilt_columns(c)
+    fused = [ps.as_tensor(c[k], DEV) for k in FUSED_ARGS]
+    cols = [ps.as_tensor(m[k], DEV) for k in PREBUILT_ARGS]
+    # K2's kernel takes the energy column already weighted, as its
+    # wrapper hands it over
+    wenergy = ps.weight_f32(c["energy_weight"]) * cols[3]
+    return fused, cols, wenergy
+
+
+def check_policy_score() -> float:
+    """K1 and K2 against their plain versions on the card, bit-equal choice
+    and ok, over every shape, case kind and energy weight. Returns the
+    largest |choice difference| (0 when they agree)."""
+    from repro_torch.kernels import policy_score as ps
+    from policy_score_cases import KINDS, make_case
+    cases = mismatches = 0
+    worst = 0
+    for (f, p) in POLICY_SHAPES:
+        for kind in KINDS:
+            for i, w in enumerate(POLICY_WEIGHTS):
+                c = make_case(97 * f + p + i, f, p, kind, w)
+                w = c["energy_weight"]
+                fused, cols, wenergy = _policy_inputs(c)
+                for name, got, want in (
+                        ("K1", ps.fused_composite_decide_cuda(*fused, w),
+                         ps.fused_composite_decide(*fused, w)),
+                        ("K2", ps.composite_decide_cuda(
+                            *cols[:3], wenergy, *cols[4:]),
+                         ps.composite_decide(*cols, w))):
+                    torch.cuda.synchronize()
+                    cases += 1
+                    bad = int((got[0] != want[0]).sum()
+                              + (got[1] != want[1]).sum())
+                    worst = max(worst, int((got[0] - want[0]).abs().max()))
+                    if bad:
+                        mismatches += 1
+                        say("check", kernel=name, shape=[f, p], kind=kind,
+                            energy_weight=w, mismatched_rows=bad, ok=False)
+    say("check", kernel="policy_score (K1, K2)", cases=cases,
+        mismatches=mismatches, shapes=POLICY_SHAPES, weights=POLICY_WEIGHTS,
+        kinds=list(KINDS), rule="bit-equal choice and ok",
+        ok=mismatches == 0)
+    if mismatches:
+        raise AssertionError(f"policy-score kernels disagree with their "
+                             f"plain versions in {mismatches} of {cases} "
+                             f"cases")
+    return float(worst)
+
+
+def policy_bound(f: int, p: int, fused: bool):
+    """Least time for one decision on the card: every input read once and
+    the outputs written once; ~6 f32 operations a cell for K1 (1.5 * exec,
+    two energy products, the weight product, two adds), 2 for K2 (two
+    adds), at the f32 rate outside the tensor cores."""
+    cell = (4 * 4 + 2 * 4 + 1) if fused else (4 * 4 + 1)
+    vec = (4 + 4 + 1) if fused else 1
+    nbytes = f * p * cell + p * vec + f * 4 + f * (4 + 1)
+    return bound((6 if fused else 2) * f * p, nbytes, PEAK_F32_FLOPS)
+
+
+def time_policy_score():
+    """K1 and K2 at the admission path's shapes and the registry-scale one:
+    kernel and plain version on the card by CUDA events over back-to-back
+    calls (at the path's tiny shapes that reads the host's launch rate),
+    and the kernel's device time per launch inside a CUDA graph. No single
+    PyTorch call computes a degraded cascade with a lowest-index argmin, so
+    there is no library time."""
+    from repro_torch.kernels import policy_score as ps
+    from policy_score_cases import make_case
+    rows = {}
+    for (f, p) in POLICY_TIMED:
+        c = make_case(11 + f + p, f, p, "random", 0.1)
+        fused, cols, wenergy = _policy_inputs(c)
+        iters = 1000 if f * p < 1000 else 100
+        for name, kernel, plain, is_fused in (
+                ("fused_composite_decide",
+                 lambda: ps.fused_composite_decide_cuda(*fused, 0.1),
+                 lambda: ps.fused_composite_decide(*fused, 0.1), True),
+                ("composite_decide",
+                 lambda: ps.composite_decide_cuda(*cols[:3], wenergy,
+                                                  *cols[4:]),
+                 lambda: ps.composite_decide(*cols, 0.1), False)):
+            bound_ms, bound_by = policy_bound(f, p, is_fused)
+            row = dict(ms=event_ms(kernel, iters, 10),
+                       plain_ms=event_ms(plain, iters // 10, 5),
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            row["graph_device_ms"] = graph_ms(kernel)
+            say("time", kernel=name, shape=[f, p], iters=iters,
+                library="none (no single call)", **row)
+            rows[(name, f, p)] = row
+    return rows
+
+
+def _fleet(rng, names, fns):
+    """tests/test_admission_fastpath.py's randomized platform state, in the
+    port, on the card: ``names`` of the paper platforms with random
+    background load and random observed executions of every function."""
+    from repro_torch.core import FDNControlPlane, profiles
+    from repro_torch.core import functions as fn_mod
+    from repro_torch.core.loadgen import attach_completion_hooks
+    from repro_torch.core.types import DeploymentSpec, Invocation
+    cp = FDNControlPlane()
+    for n in names:
+        cp.create_platform(profiles.PAPER_PLATFORMS[n])
+    fn_mod.seed_object_stores(cp.placement, location="cloud-cluster",
+                              device=DEV)
+    cp.deploy(DeploymentSpec("t", list(fns.values()), list(cp.platforms)))
+    attach_completion_hooks(cp)
+    for p in cp.platforms.values():
+        p.bg_cpu = float(rng.uniform(0, 1.2))
+        p.bg_mem = float(rng.uniform(0, 0.8))
+    for fn in fns.values():
+        for pname in cp.platforms:
+            for _ in range(int(rng.integers(0, 15))):
+                inv = Invocation(fn, 0.0)
+                inv.platform = pname
+                inv.exec_time = float(rng.uniform(0.01, 8.0))
+                inv.end_t = inv.exec_time
+                cp.perf.observe(inv)
+    return cp
+
+
+def _paper_fns():
+    from repro_torch.core import functions as fn_mod
+    return {k: f.replace(real_fn=None)
+            for k, f in fn_mod.paper_functions(device=DEV).items()}
+
+
+def time_decision(iters: int = 2000):
+    """The admission decision as the path makes it, F=5 paper functions
+    over the P=5 paper platforms: a fresh snapshot and one
+    ``fn_decisions`` per call, host clock (each call ends by copying the
+    choice back to the host), under each backend; and the eleven
+    host-to-device copies of K1's inputs alone."""
+    import time as _time
+    from repro_torch.core import profiles
+    from repro_torch.core import scheduler as sched
+    from repro_torch.kernels import policy_score as ps
+    fns = _paper_fns()
+    cp = _fleet(gen(8), list(profiles.PAPER_PLATFORMS), fns)
+    pol = sched.SLOCompositePolicy(cp.perf, cp.placement)
+    specs = list(fns.values())
+    plats = cp.alive_platforms()
+
+    def decide():
+        return pol.fn_decisions(specs, sched.as_snapshot(plats), n=64)
+
+    def host_ms(fn):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (_time.perf_counter() - t0) / iters * 1e3
+
+    row, picks = {}, {}
+    sched.set_score_device(DEV)
+    try:
+        for label, backend, kernel in (("numpy", "numpy", False),
+                                       ("torch", "torch", False),
+                                       ("torch_k1", "torch", True)):
+            sched.set_score_backend(backend)
+            ps.set_use_pallas(kernel)
+            row[f"{label}_ms"] = host_ms(decide)
+            picks[label] = [a.tolist() for a in decide()]
+        host = pol._fused_inputs(specs, sched.as_snapshot(plats))
+        row["h2d_11_inputs_ms"] = host_ms(lambda: sched._on_device(*host))
+    finally:
+        sched.set_score_backend("auto")
+        ps.set_use_pallas(False)
+        sched.set_score_device(None)
+    say("time", what="admission decision", shape=[len(specs), len(plats)],
+        iters=iters, clock="host, fresh snapshot per decision", **row)
+    if not picks["numpy"] == picks["torch"] == picks["torch_k1"]:
+        raise AssertionError(f"decision backends disagree: {picks}")
+    return row
+
+
+POLICY_FACTORIES = {
+    "perf_ranked": lambda s, cp: s.PerformanceRankedPolicy(cp.perf),
+    "utilization": lambda s, cp: s.UtilizationAwarePolicy(
+        cp.perf, cpu_threshold=0.7),
+    "round_robin": lambda s, cp: s.RoundRobinCollaboration(),
+    "weighted": lambda s, cp: s.WeightedCollaboration(
+        {"hpc-node-cluster": 5, "cloud-cluster": 1, "edge-cluster": 2}),
+    "data_locality": lambda s, cp: s.DataLocalityPolicy(cp.perf,
+                                                        cp.placement),
+    "warm_aware": lambda s, cp: s.WarmAwarePolicy(cp.perf, cp.placement),
+    "energy": lambda s, cp: s.EnergyAwarePolicy(cp.perf),
+    "slo_composite": lambda s, cp: s.SLOCompositePolicy(cp.perf,
+                                                        cp.placement),
+}
+
+
+def policy_parity(trials: int = 4, n_invs: int = 96):
+    """Phase 5a. tests/test_admission_fastpath.py:82-101's scenarios on the
+    card: every policy picks the same platforms under the numpy backend,
+    the torch backend and torch with the kernel."""
+    from repro_torch.core import profiles
+    from repro_torch.core import scheduler as sched
+    from repro_torch.core.types import SLO, Invocation
+    from repro_torch.kernels import policy_score as ps
+    fns = _paper_fns()
+    rng = gen(20260730)
+    all_names = list(profiles.PAPER_PLATFORMS)
+    decisions = k1_decisions = 0
+    sched.set_score_device(DEV)
+    torch.cuda.synchronize()
+    ps.fused_composite_decide_cuda.launches = 0
+    try:
+        for trial in range(trials):
+            k = int(rng.integers(2, len(all_names) + 1))
+            names = list(rng.choice(all_names, size=k, replace=False))
+            cp = _fleet(rng, names, fns)
+            specs = [s if rng.random() < 0.5 else s.replace(slo=SLO(
+                p90_response_s=float(rng.uniform(0.05, 10))))
+                for s in fns.values()]
+            mix = [specs[int(rng.integers(0, len(specs)))]
+                   for _ in range(n_invs)]
+            plats = list(cp.platforms.values())
+            for pname, make in POLICY_FACTORIES.items():
+                picks = {}
+                for label, backend, kernel in (("numpy", "numpy", False),
+                                               ("torch", "torch", False),
+                                               ("torch_k1", "torch", True)):
+                    sched.set_score_backend(backend)
+                    ps.set_use_pallas(kernel)
+                    pol = make(sched, cp)        # fresh rotation state
+                    got = pol.choose_batch([Invocation(f, 0.0) for f in mix],
+                                           plats)
+                    picks[label] = [p.prof.name if p else None for p in got]
+                    decisions += pol.torch_decisions
+                    if kernel and pname == "slo_composite":
+                        k1_decisions += pol.torch_decisions
+                if not picks["numpy"] == picks["torch"] == picks["torch_k1"]:
+                    raise AssertionError(f"{pname} trial {trial}: backends "
+                                         f"pick different platforms")
+    finally:
+        sched.set_score_backend("auto")
+        ps.set_use_pallas(False)
+        sched.set_score_device(None)
+    k1_launches = ps.fused_composite_decide_cuda.launches
+    ok = k1_decisions > 0 and k1_launches == k1_decisions
+    say("parity", trials=trials, invocations=n_invs,
+        policies=list(POLICY_FACTORIES),
+        backends=["numpy", "torch", "torch+K1"], torch_decisions=decisions,
+        k1_decisions=k1_decisions, k1_launches=k1_launches, ok=ok)
+    if not ok:
+        raise AssertionError(f"torch+K1 made {k1_decisions} slo_composite "
+                             f"decisions but K1 launched {k1_launches} "
+                             f"times")
+
+
+def admission_stream() -> dict:
+    """Phase 5b. The 100,000-arrival stream three ways; returns the K1 run's
+    kernel launches."""
+    from repro_torch.launch.batch_scheduling import run
+    keys = ("arrivals", "completed", "rejected", "platform_counts",
+            "p90_response_s", "cold_starts")
+    runs = {}
+    launches = None
+    for label, backend, kernel in (("numpy", "numpy", False),
+                                   ("torch", "torch", False),
+                                   ("torch_k1", "torch", True)):
+        kernels = wrappers()
+        if kernel:
+            torch.cuda.synchronize()
+            for fn in kernels.values():
+                fn.launches = 0
+        out = run(STREAM_ARRIVALS, backend, kernel, DEV)
+        if kernel:
+            launches = {name: fn.launches for name, fn in kernels.items()}
+        del out["sink"], out["cp"]
+        say("admission", run=label, **out)
+        runs[label] = out
+    want = {k: runs["numpy"][k] for k in keys}
+    for label in ("torch", "torch_k1"):
+        got = {k: runs[label][k] for k in keys}
+        if got != want:
+            raise AssertionError(f"admission stream under {label} differs "
+                                 f"from numpy: {got} != {want}")
+    k1 = runs["torch_k1"]
+    if not (k1["torch_decisions"] > 0
+            and launches["fused_composite_decide"] == k1["torch_decisions"]
+            and sum(launches.values()) == k1["torch_decisions"]):
+        raise AssertionError(f"K1 launches {launches} != torch decisions "
+                             f"{k1['torch_decisions']}")
+    if runs["torch"]["k1_launches"] != 0:
+        raise AssertionError("the torch run without the kernel launched K1")
+    say("admission", launches=launches,
+        torch_decisions=k1["torch_decisions"], identical=list(keys), ok=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: serve each model; logits
 # ---------------------------------------------------------------------------
 
 
 def wrappers():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import policy_score as ps
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import ssd_scan as ssd
     return {"flash_attention": fa.flash_attention_cuda,
-            "ssd_scan": ssd.ssd_scan_cuda, "rglru_scan": rg.rglru_scan_cuda}
+            "ssd_scan": ssd.ssd_scan_cuda, "rglru_scan": rg.rglru_scan_cuda,
+            "fused_composite_decide": ps.fused_composite_decide_cuda,
+            "composite_decide": ps.composite_decide_cuda}
 
 
 def per_prefill(cfg) -> dict:
@@ -409,7 +764,7 @@ def per_prefill(cfg) -> dict:
 
 
 def serve(cfg, params, n_req: int = 16) -> dict:
-    """Phase 5. Returns each kernel's launch count over the measured run."""
+    """Phase 6. Returns each kernel's launch count over the measured run."""
     from repro_torch.launch.serve import (WORKLOAD_NEW_TOKENS, run_timed,
                                           workload)
 
@@ -450,7 +805,7 @@ def serve(cfg, params, n_req: int = 16) -> dict:
 
 
 def logits_parity(cfg, params):
-    """Phase 6. Last-token prefill logits of two 1024-token prompts through
+    """Phase 7. Last-token prefill logits of two 1024-token prompts through
     the kernels, through the plain route (``use_pallas=False``), and
     through the plain route in f32 weights. The dense family's prompts are
     right-padded (300 and 1000 tokens: the engine's ragged prefill); the
@@ -502,7 +857,7 @@ def _tree_float(tree):
 
 
 def run_model(arch: str) -> dict:
-    """Phases 5 and 6 for one model; frees its weights. Returns the kernel
+    """Phases 6 and 7 for one model; frees its weights. Returns the kernel
     launches of its serving run."""
     from repro_torch import device as devmod
     from repro_torch.configs.registry import get_config
@@ -535,8 +890,13 @@ def main() -> int:
     err_fa = check_flash()
     err_ssd = check_ssd()
     err_rg = check_rglru()
+    err_ps = check_policy_score()
     t_fa, t_ssd, t_rg = time_flash(), time_ssd(), time_rglru()
-    launches = {arch: run_model(arch) for arch in MODELS}
+    t_ps = time_policy_score()
+    time_decision()
+    policy_parity()
+    launches = {"admission": admission_stream()}
+    launches.update({arch: run_model(arch) for arch in MODELS})
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",
@@ -560,6 +920,16 @@ def main() -> int:
         entry("rglru_scan", "rglru_scan",
               "src/repro/kernels/rglru_scan.py:48",
               launches["recurrentgemma-9b"]["rglru_scan"], err_rg, t_rg),
+        # at the admission stream's decision shape, F=1 x P=5
+        entry("fused_composite_decide", "policy_score",
+              "src/repro/kernels/policy_score.py:351",
+              launches["admission"]["fused_composite_decide"], err_ps,
+              t_ps[("fused_composite_decide", 1, 5)]),
+        # no path of either package reaches K2: its launches are 0
+        entry("composite_decide", "policy_score",
+              "src/repro/kernels/policy_score.py:266",
+              launches["admission"]["composite_decide"], err_ps,
+              t_ps[("composite_decide", 1, 5)]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

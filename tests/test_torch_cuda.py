@@ -20,6 +20,9 @@ Tolerances (atol, rtol), those of chip_smoke.py:
 * RG-LRU scan: 2e-5 x mean|out| and 1e-5 (the kernel chains 8 segments;
   emulated in f32 on the CPU that is 3.8e-6 from the sequential scan at
   S=1024, W=4096, where mean|h| is 2.5).
+* policy-score kernels (K1, K2): bit-equal choice and ok. The kernels round
+  every multiply and add apart, in the plain version's association, so
+  nothing in the arithmetic differs.
 """
 import pytest
 
@@ -29,6 +32,9 @@ import numpy as np  # noqa: E402
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import policy_score as ps  # noqa: E402
+from policy_score_cases import (  # noqa: E402
+    FUSED_ARGS, KINDS, PREBUILT_ARGS, make_case, prebuilt_columns)
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
@@ -182,3 +188,50 @@ def test_scan_kernels_reject_what_they_do_not_take(cuda_device):
     a = torch.zeros(1, 8, 4, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="f32"):
         rg.rglru_scan_cuda(a, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("f,p", [(1, 5), (5, 5), (10, 5), (37, 129),
+                                 (4096, 1024)])
+def test_policy_score_kernels_match_plain(cuda_device, f, p, kind):
+    """K1 and K2 against their plain versions on the card, bit-equal, at
+    the admission path's shapes and a registry-scale one, energy weights 0,
+    0.1 and 0.5."""
+    for i, w in enumerate((0.0, 0.1, 0.5)):
+        c = make_case(97 * f + p + i, f, p, kind, w)
+        w = c["energy_weight"]
+        args = [ps.as_tensor(c[k], cuda_device) for k in FUSED_ARGS]
+        before = ps.fused_composite_decide_cuda.launches
+        got = ps.fused_composite_decide_pallas(*args, w)
+        torch.cuda.synchronize()
+        assert ps.fused_composite_decide_cuda.launches == before + 1
+        want = ps.fused_composite_decide(*args, w)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        m = prebuilt_columns(c)
+        cols = [ps.as_tensor(m[k], cuda_device) for k in PREBUILT_ARGS]
+        before = ps.composite_decide_cuda.launches
+        got2 = ps.composite_decide_pallas(*cols, w)
+        torch.cuda.synchronize()
+        assert ps.composite_decide_cuda.launches == before + 1
+        want2 = ps.composite_decide(*cols, w)
+        assert torch.equal(got2[0], want2[0])
+        assert torch.equal(got2[1], want2[1])
+
+
+@pytest.mark.cuda
+def test_policy_score_kernels_reject_what_they_do_not_take(cuda_device):
+    c = make_case(0, 4, 5, "random")
+    args = [ps.as_tensor(c[k], cuda_device) for k in FUSED_ARGS]
+    bad = list(args)
+    bad[1] = bad[1].long()                       # ewma_n must be int32
+    with pytest.raises(ValueError, match="ewma_n"):
+        ps.fused_composite_decide_cuda(*bad, 0.1)
+    bad = list(args)
+    bad[8] = bad[8].cpu()                        # alive on another device
+    with pytest.raises(ValueError, match="alive"):
+        ps.fused_composite_decide_cuda(*bad, 0.1)
+    m = prebuilt_columns(c)
+    cols = [ps.as_tensor(m[k], cuda_device) for k in PREBUILT_ARGS]
+    with pytest.raises(ValueError, match="exec_s"):
+        ps.composite_decide_cuda(cols[0].t(), *cols[1:])

@@ -33,7 +33,9 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.serving.engine" in mods
     for name in ("kernels.flash_attention", "kernels.ssd_scan",
-                 "kernels.rglru_scan", "models.mamba2", "models.rglru"):
+                 "kernels.rglru_scan", "models.mamba2", "models.rglru",
+                 "core.control_plane", "core.scheduler",
+                 "kernels.policy_score"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -68,12 +70,22 @@ def test_serve_launcher_names_the_missing_card():
     assert "no CUDA card" in proc.stderr
 
 
+def test_batch_scheduling_launcher_names_the_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible here")
+    proc = _run("import sys\n"
+                "from repro_torch.launch import batch_scheduling\n"
+                "sys.exit(batch_scheduling.main(['--arrivals', '10']))\n")
+    assert proc.returncode != 0
+    assert "no CUDA card" in proc.stderr
+
+
 def test_kernel_module_imports_without_nvcc(tmp_path):
     env = dict(os.environ)
     env["PATH"] = str(tmp_path)             # no nvcc anywhere on it
     env.pop("CUDA_HOME", None)
     proc = _run("from repro_torch.kernels import (flash_attention, ops,\n"
-                "    rglru_scan, ssd_scan, _build)\n"
+                "    rglru_scan, ssd_scan, policy_score, _build)\n"
                 "import torch\n"
                 "q = torch.zeros(1, 16, 4, 32)\n"
                 "ops.flash_attention(q, q[:, :, :2], q[:, :, :2])\n"
@@ -84,6 +96,17 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
                 "ops.rglru_scan(q[..., 0], q[..., 0])\n"
                 "assert flash_attention.flash_attention_cuda.launches == 0\n"
                 "assert ssd_scan.ssd_scan_cuda.launches == 0\n"
+                "c = torch.zeros(2, 5)\n"
+                "a = torch.ones(2, 5, dtype=torch.bool)\n"
+                "n = torch.zeros(2, 5, dtype=torch.int32)\n"
+                "u = torch.ones(5, dtype=torch.bool)\n"
+                "policy_score.fused_composite_decide_pallas(c, n, c, c, n,"
+                " c, c[0], c[0], a, u, c[:, 0], 0.1)\n"
+                "policy_score.composite_decide_pallas(c, c, c, c, a, u, "
+                "c[:, 0], 0.1)\n"
                 "assert rglru_scan.rglru_scan_cuda.launches == 0\n"
+                "assert policy_score.fused_composite_decide_cuda.launches"
+                " == 0\n"
+                "assert policy_score.composite_decide_cuda.launches == 0\n"
                 "assert not _build._LIBS\n", env)
     assert proc.returncode == 0, proc.stderr

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA card: the FDN
-admission path and the serving paths.
+admission path, the serving paths and the split-K decode attention entry
+point.
 
     python3 chip_smoke.py
 
@@ -23,23 +24,36 @@ one after another (each one's weights are freed before the next loads):
   (``csrc/rglru_scan.cu``, K6) and local attention through K3 at head_dim
   256.
 
+Split-K decode attention (``kernels/ops.decode_attention``, the kernel
+``csrc/decode_attention.cu``, K4) is an entry point that no serving path
+calls, in the JAX package as in the port: decode runs ``layers.attend``. Its
+own path is held on the caches that qwen3-0.6b's and recurrentgemma-9b's
+prefill build, and it must launch 0 times while they serve.
+
 Phases, each printing its numbers on lines of its own:
 
   1. the card's name and power limit, as nvidia-smi gives them;
-  2. build the four kernel sources from the checkout, one nvcc each, all
+  2. build the five kernel sources from the checkout, one nvcc each, all
      started together; print the seconds and ptxas's registers and spills
      per kernel instance;
   3. hold every kernel against its plain PyTorch version on the cases of
      tests/test_kernels.py and at the serving paths' shapes, each tolerance
      printed beside the output's mean |value|; K1 and K2 bit-equal on the
      cases of ``tests/policy_score_cases.py`` at the admission path's
-     shapes and a registry-scale one;
+     shapes and a registry-scale one; K4, through its entry point
+     ``ops.decode_attention``, on the cases of
+     ``tests/decode_attention_cases.py``: tests/test_kernels.py's, lengths
+     0, 1, T, split_len and split_len + 1, T=1152 and T=100, and both
+     serving caches (B=4, T=1152; qwen3-0.6b's KH=8, D=128 and
+     recurrentgemma-9b's local KH=1, D=256);
   4. time every kernel at its path's full-width shape with S=1024 (K1 and
      K2 at the admission path's F x P and at F=4096, P=1024) beside its
      plain version, its bound on the card and, where one PyTorch call
      computes the same function, that call (SDPA for K3: a yardstick the
-     port never calls); time the admission decision as the path makes it,
-     host-to-device copies included;
+     port never calls); K4 at both serving caches with lengths = T beside
+     its plain version, ``layers.attend`` (what decode runs) and SDPA with a
+     boolean length mask; time the admission decision as the path makes
+     it, host-to-device copies included;
   5. admission: every policy picks the same platforms under the numpy
      backend, the torch backend and torch with the kernel, on
      tests/test_admission_fastpath.py's randomized platform states; then
@@ -53,7 +67,12 @@ Phases, each printing its numbers on lines of its own:
      and read just after, and each kernel's launches per prefill asserted;
   7. per model: hold the prefill's last-token logits through the kernels
      against the plain route and an f32 run of the same weights;
-  8. print one line listing every kernel, then the result line.
+  8. qwen3-0.6b and recurrentgemma-9b: K4, through its entry point, on
+     every attention layer's cache as the model's own prefill builds it (ragged prompts of 64-1000
+     tokens for qwen3, 1000 tokens for the hybrid's unwrapped ring),
+     against its plain version and against ``layers.attend``, with K4's
+     launch count set to 0 just before and read just after;
+  9. print one line listing every kernel, then the result line.
 
 Any failed phase raises, so the script exits non-zero and prints no result
 line. Without a visible card it exits non-zero at once.
@@ -72,7 +91,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-# the seeded K1/K2 cases that the tests share (tests/policy_score_cases.py)
+# the seeded kernel cases that the tests share (tests/policy_score_cases.py,
+# tests/decode_attention_cases.py)
 sys.path.insert(1, str(ROOT / "tests"))
 
 DEV = "cuda"
@@ -129,6 +149,13 @@ RGLRU_CASES = [                   # tests/test_kernels.py:96-100, + full width
     # (b, s, w)
     (1, 64, 32), (2, 128, 64), (1, 256, 128), (1, 64, 4096), (1, 1024, 4096),
 ]
+# K4 against layers.attend, per element: |K4 - attend| <= 2**-7 * (|attend|
+# + sum_j p_j |v_j|). attend rounds its probabilities to bf16 before the
+# product with v, which moves the output by at most 2**-9 * sum_j p_j |v_j|,
+# and each side rounds its output once. On the CPU, at these serving shapes
+# and normal inputs of scale 0.3-3, the error reached at most 0.50 of this
+# limit (tests/test_torch_decode_attention.py).
+ATTEND_LIMIT = 2 ** -7
 # policy-score kernels: (F functions, P platforms). The admission stream
 # decides F=1 (nodeinfo) over the paper's P=5 platforms; a mixed burst has
 # F <= 10; 37 x 129 crosses the warp width in P; 4096 x 1024 is a
@@ -333,6 +360,49 @@ def check_rglru() -> float:
     return worst
 
 
+def _decode_inputs(rng, b, t, h, kh, d, lengths, dtype):
+    q = on_card(rng.normal(size=(b, h, d)) * 0.3, dtype)
+    k, v = (on_card(rng.normal(size=(b, t, kh, d)) * 0.3, dtype)
+            for _ in range(2))
+    lens = rng.integers(1, t + 1, b) if lengths is None else lengths
+    return q, k, v, on_card(np.asarray(lens), torch.int32)
+
+
+def check_decode() -> float:
+    """K4, through its entry point ``ops.decode_attention``, against its
+    plain version on the shared cases (f32 and bf16) and at the serving
+    caches with ragged lengths (bf16, as the caches are). Returns the
+    largest bf16 abs error at the serving caches."""
+    from decode_attention_cases import CASES, SERVING, serving_case
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    rng = gen(9)
+    cases = [(c, False) for c in CASES.values()]
+    cases += [(serving_case(name), True) for name in SERVING]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b, t, h, kh, d, splits, kv_block, lengths), serving in cases:
+            if serving and dtype == torch.float32:
+                continue                    # the caches are bf16
+            q, k, v, lens = _decode_inputs(rng, b, t, h, kh, d, lengths,
+                                           dtype)
+            before = da.decode_attention_cuda.launches
+            got = ops.decode_attention(q, k, v, lens, splits=splits,
+                                       kv_block=kv_block)
+            torch.cuda.synchronize()
+            if da.decode_attention_cuda.launches != before + 1:
+                raise AssertionError("ops.decode_attention did not launch K4")
+            want = da.decode_attention_plain(q, k, v, lens, splits=splits,
+                                             kv_block=kv_block)
+            err = _verdict("decode_attention", got, want, *TOL[dtype],
+                           dtype=str(dtype), shape=[b, t, h, kh, d],
+                           lengths=lens.tolist(), splits=splits,
+                           kv_block=kv_block)
+            if serving:
+                worst = max(worst, err)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: time each kernel
 # ---------------------------------------------------------------------------
@@ -365,6 +435,15 @@ def ssd_bound(b, s, h, p, g, n, q, x_bytes=2):
 def rglru_bound(b, s, w):
     """a and b read, h written, f32; one multiply-add per element."""
     return bound(2 * b * s * w, 3 * b * s * w * 4)
+
+
+def decode_bound(b, t, h, kh, d, lengths):
+    """Least time for bf16 decode attention: q, the cache's k and v, and
+    lengths read once, the output written once; 4*D flops (two products)
+    per query row and valid key, at the bf16 tensor-core rate."""
+    keys = int(torch.clamp(lengths, 0, t).sum())
+    return bound(4 * d * h * keys,
+                 2 * (2 * b * h * d + 2 * b * t * kh * d) + 4 * b)
 
 
 def time_flash():
@@ -412,6 +491,52 @@ def time_ssd():
     say("time", kernel="ssd_scan", dtype="bf16", shape=list(shape), chunk=256,
         library="none: no single PyTorch call computes the SSD scan", **row)
     return row
+
+
+def time_decode():
+    """K4 at both serving caches with lengths = T: the kernel through its
+    entry point ``ops.decode_attention``, its plain version, ``layers.attend`` on the same cache as decode calls it, and
+    SDPA with a boolean length mask (a yardstick the port never calls), by
+    CUDA events over back-to-back calls (host launch cost included); and
+    the kernel's, attend's and SDPA's device time a call inside a CUDA
+    graph."""
+    import torch.nn.functional as F
+    from decode_attention_cases import SERVING
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    rng = gen(10)
+    rows = {}
+    for path, (b, t, h, kh, d) in SERVING.items():
+        q, k, v, lens = _decode_inputs(rng, b, t, h, kh, d, [t] * b,
+                                       torch.bfloat16)
+        q_pos = (lens - 1)[:, None]
+        k_pos = torch.arange(t, device=DEV)
+        qt = q[:, :, None]                              # (B,H,1,D)
+        kt = k.transpose(1, 2).contiguous()             # (B,KH,T,D)
+        vt = v.transpose(1, 2).contiguous()
+        mask = (k_pos[None, :] < lens[:, None])[:, None, None, :]
+        bound_ms, bound_by = decode_bound(b, t, h, kh, d, lens)
+        row = dict(
+            ms=event_ms(lambda: ops.decode_attention(q, k, v, lens), 200),
+            plain_ms=event_ms(lambda: da.decode_attention_plain(
+                q, k, v, lens), 20),
+            attend_ms=event_ms(lambda: layers.attend(
+                q[:, None], k, v, q_pos, k_pos), 50),
+            library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), 50),
+            bound_ms=bound_ms, bound_by=bound_by)
+        row["graph_device_ms"] = {
+            "kernel": graph_ms(lambda: ops.decode_attention(q, k, v, lens)),
+            "attend": graph_ms(lambda: layers.attend(
+                q[:, None], k, v, q_pos, k_pos)),
+            "library": graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))}
+        say("time", kernel="decode_attention", dtype="bf16",
+            shape=[b, t, h, kh, d], lengths="T", library="SDPA, bool mask",
+            **row)
+        rows[path] = row
+    return rows
 
 
 def time_rglru():
@@ -739,18 +864,22 @@ def admission_stream() -> dict:
 
 
 def wrappers():
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import policy_score as ps
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import ssd_scan as ssd
     return {"flash_attention": fa.flash_attention_cuda,
+            "decode_attention": da.decode_attention_cuda,
             "ssd_scan": ssd.ssd_scan_cuda, "rglru_scan": rg.rglru_scan_cuda,
             "fused_composite_decide": ps.fused_composite_decide_cuda,
             "composite_decide": ps.composite_decide_cuda}
 
 
 def per_prefill(cfg) -> dict:
-    """Each kernel's launches in one prefill of ``cfg``'s path."""
+    """Each kernel's launches in one prefill of ``cfg``'s path. Decode runs
+    ``layers.attend``, so K4 launches 0 times in a serving run: ``serve``
+    asserts that, which shows that no route to it was added."""
     from repro_torch.models import rglru
     n = {name: 0 for name in wrappers()}
     if cfg.family == "dense":
@@ -850,15 +979,87 @@ def logits_parity(cfg, params):
                              f"{err_p}")
 
 
+def cache_parity(cfg, params) -> int:
+    """Phase 8. K4, through ``ops.decode_attention``, on every attention
+    layer's cache as ``cfg``'s own prefill builds it (no copy), with ``lengths = cache["pos"]`` and a seeded q: against its
+    plain version at ``TOL`` and against ``layers.attend`` (as decode calls
+    it, ``k_pos`` from the cache) within ``ATTEND_LIMIT``. qwen3-0.6b
+    prefills four right-padded prompts of 64, 300, 700 and 1000 tokens;
+    recurrentgemma-9b 1000 tokens, so its local ring (1152 slots) has not
+    wrapped. Returns K4's launches, counted from 0 over this phase."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers
+    from repro_torch.models import model_api as api
+
+    rng = gen(12)
+    if cfg.family == "dense":
+        lens = np.array([64, 300, 700, 1000])
+        tokens = np.zeros((4, 1024), np.int64)
+        for i, n in enumerate(lens):
+            tokens[i, :n] = rng.integers(1, cfg.vocab_size, n)
+        batch = {"tokens": torch.from_numpy(tokens).to(DEV),
+                 "prompt_lens": torch.from_numpy(lens).to(DEV)}
+        window = cfg.sliding_window
+    else:
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(1, cfg.vocab_size, (4, 1000))).to(DEV)}
+        window = cfg.local_window
+    with torch.inference_mode():
+        _, cache = api.prefill(cfg, params, batch, 1024)
+        pos, k_pos = cache["pos"], cache["k_pos"]
+        n_layers = cache["k"].shape[0]
+        atol, rtol = TOL[torch.bfloat16]
+        worst = dict(plain=0.0, attend=0.0, of_limit=0.0, mean_abs_out=0.0)
+        torch.cuda.synchronize()
+        da.decode_attention_cuda.launches = 0
+        for i in range(n_layers):
+            kc, vc = cache["k"][i], cache["v"][i]
+            q = on_card(rng.normal(size=(4, cfg.n_heads, cfg.head_dim)),
+                        torch.bfloat16)
+            got = ops.decode_attention(q, kc, vc, pos).float()
+            torch.cuda.synchronize()
+            want = da.decode_attention_plain(q, kc, vc, pos).float()
+            att = layers.attend(q[:, None], kc, vc, pos[:, None], k_pos,
+                                causal=True, window=window)[:, 0].float()
+            pv = ref.decode_attention_ref(q.float(), kc.float(),
+                                          vc.float().abs(), pos)
+            err = float((got - want).abs().max())
+            err_att = (got - att).abs()
+            of_limit = float((err_att / (ATTEND_LIMIT * (att.abs() + pv)))
+                             .max())
+            row = dict(plain=err, attend=float(err_att.max()),
+                       of_limit=of_limit,
+                       mean_abs_out=float(want.abs().mean()))
+            worst = {k: max(worst[k], row[k]) for k in worst}
+            if not (torch.isfinite(got).all() and of_limit <= 1.0
+                    and torch.allclose(got, want, atol=atol, rtol=rtol)):
+                raise AssertionError(f"{cfg.name} layer {i}: K4 is {err} from "
+                                     f"its plain version and {of_limit} of "
+                                     f"the attend limit")
+        launches = da.decode_attention_cuda.launches
+    say("cache", arch=cfg.name, layers=n_layers, cache=list(cache["k"].shape),
+        lengths=pos.tolist(), tol=[atol, rtol], attend_limit=ATTEND_LIMIT,
+        max_abs_err_plain=worst["plain"], max_abs_err_attend=worst["attend"],
+        max_of_attend_limit=worst["of_limit"],
+        max_mean_abs_out=worst["mean_abs_out"], launches=launches,
+        ok=launches == n_layers)
+    if launches != n_layers:
+        raise AssertionError(f"{cfg.name}: K4 launched {launches} times on "
+                             f"{n_layers} layers")
+    return launches
+
+
 def _tree_float(tree):
     if isinstance(tree, dict):
         return {k: _tree_float(v) for k, v in tree.items()}
     return tree.float()
 
 
-def run_model(arch: str) -> dict:
-    """Phases 6 and 7 for one model; frees its weights. Returns the kernel
-    launches of its serving run."""
+def run_model(arch: str):
+    """Phases 6, 7 and (for the attention families) 8 for one model; frees
+    its weights. Returns the kernel launches of its serving run and K4's
+    launches on its caches."""
     from repro_torch import device as devmod
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model_api as api
@@ -868,10 +1069,12 @@ def run_model(arch: str) -> dict:
     params = api.init_params(cfg, devmod.generator(0, dev), dev)
     launches = serve(cfg, params)
     logits_parity(cfg, params)
+    cache_launches = (cache_parity(cfg, params)
+                      if cfg.family in ("dense", "hybrid") else 0)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, cache_launches
 
 
 def main() -> int:
@@ -886,17 +1089,23 @@ def main() -> int:
     say("card", nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda)
 
+    from decode_attention_cases import SERVING
     build_kernels()
     err_fa = check_flash()
     err_ssd = check_ssd()
     err_rg = check_rglru()
     err_ps = check_policy_score()
+    err_da = check_decode()
     t_fa, t_ssd, t_rg = time_flash(), time_ssd(), time_rglru()
+    t_da = time_decode()
     t_ps = time_policy_score()
     time_decision()
     policy_parity()
     launches = {"admission": admission_stream()}
-    launches.update({arch: run_model(arch) for arch in MODELS})
+    cache_launches = 0
+    for arch in MODELS:
+        launches[arch], n = run_model(arch)
+        cache_launches += n
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",
@@ -930,6 +1139,17 @@ def main() -> int:
               "src/repro/kernels/policy_score.py:266",
               launches["admission"]["composite_decide"], err_ps,
               t_ps[("composite_decide", 1, 5)]),
+        # no serving or admission path reaches K4 (decode runs
+        # layers.attend): 0 launches there; its own path is the cache phase.
+        # Times at qwen3-0.6b's cache, recurrentgemma-9b's beside them
+        dict(entry("decode_attention", "decode_attention",
+                   "src/repro/kernels/decode_attention.py:62",
+                   sum(run["decode_attention"] for run in launches.values()),
+                   err_da, t_da["d128"]),
+             attend_ms=t_da["d128"]["attend_ms"],
+             cache_phase_launches=cache_launches,
+             shape=list(SERVING["d128"]),
+             d256=dict(t_da["d256"], shape=list(SERVING["d256"]))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

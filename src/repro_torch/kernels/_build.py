@@ -50,7 +50,8 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-SOURCES = ("flash_attention", "ssd_scan", "rglru_scan", "policy_score")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
+           "policy_score")
 
 
 def build_all(names=SOURCES) -> Dict[str, float]:

@@ -2,12 +2,16 @@
 device: a CUDA tensor goes to the hand-written kernel, a CPU tensor to the
 kernel's plain PyTorch version. Any other device raises.
 
-``flash_attention``, ``ssd_scan`` and ``rglru_scan`` keep the signatures of
-the JAX package's ``kernels/ops.py``. ``q_block``/``kv_block`` tile the plain
-flash attention as they tile the Pallas kernel, and ``chunk`` is the SSD
-scan's chunk on both routes; the CUDA kernels pick their own tiles, and
-``rglru_scan``'s ``chunk``/``width_block`` (tiles of the Pallas kernel) tile
-neither route: the recurrence is the same function whatever the tiling.
+``flash_attention``, ``decode_attention``, ``ssd_scan`` and ``rglru_scan``
+keep the signatures of the JAX package's ``kernels/ops.py``. ``q_block``/
+``kv_block`` tile the plain flash attention as they tile the Pallas kernel;
+``splits``/``kv_block`` split the plain decode attention as they split the
+Pallas kernel, and on both routes decide which cache lengths are accepted
+(the reference's rule, ``decode_attention.split_rule``); ``chunk`` is the SSD
+scan's chunk on both routes. The CUDA kernels pick their own tiles and
+splits, and ``rglru_scan``'s ``chunk``/``width_block`` (tiles of the Pallas
+kernel) tile neither route: the recurrence is the same function whatever the
+tiling.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import ssd_scan as _ssd
@@ -32,6 +37,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                          window=window, q_block=q_block,
                                          kv_block=kv_block)
     raise ValueError(f"flash_attention runs on cuda or cpu tensors; got "
+                     f"{q.device}")
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, splits: int = 4,
+                     kv_block: int = 128) -> torch.Tensor:
+    if q.device.type == "cuda":
+        return _da.decode_attention_cuda(q.contiguous(), k.contiguous(),
+                                         v.contiguous(),
+                                         lengths.to(torch.int32),
+                                         splits=splits, kv_block=kv_block)
+    if q.device.type == "cpu":
+        return _da.decode_attention_plain(q, k, v, lengths, splits=splits,
+                                          kv_block=kv_block)
+    raise ValueError(f"decode_attention runs on cuda or cpu tensors; got "
                      f"{q.device}")
 
 

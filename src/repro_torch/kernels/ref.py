@@ -1,6 +1,6 @@
 """Plain PyTorch oracles for the port's kernels: the twins of
-``flash_attention_ref``, ``ssd_ref`` and ``rglru_ref`` in the JAX package's
-``kernels/ref.py``.
+``flash_attention_ref``, ``decode_attention_ref``, ``ssd_ref`` and
+``rglru_ref`` in the JAX package's ``kernels/ref.py``.
 
 Deliberately naive (full (Sq, T) scores, sequential recurrences, f32):
 correctness references, not performance paths.
@@ -34,6 +34,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """q: (B,H,D); k,v: (B,T,KH,D); lengths: (B,) valid prefix lengths."""
+    b, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qr = q.reshape(b, kh, g, d).float()
+    scores = torch.einsum("bkgd,btkd->bkgt", qr, k.float()) * (d ** -0.5)
+    mask = (torch.arange(t, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])                   # (B,T)
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -13,6 +13,10 @@ Tolerances (atol, rtol), those of chip_smoke.py:
   once, so they differ by at most one bf16 step (2**-7 of the value), and
   2e-4 stays well under a typical |out| (about 1e-2 at S=1024, 5e-3 at
   D=256 under a 2048 window).
+* decode attention: those of flash attention, for the same reason (kernel
+  and plain version compute in f32 and round the output once); a typical
+  |out| is about 0.06 at these 0.3-scale inputs and 0.015-0.02 at the
+  serving shapes.
 * SSD scan: f32 1e-4 x mean|out| and 1e-5 (the plain f32 chunked scan is
   3.6e-5 from a float64 one at full width, where mean|y| is 3.1: 1.2e-5 of
   the mean); bf16 y 1e-3 x mean|out| and 2**-7 (one bf16 rounding of the
@@ -30,6 +34,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from decode_attention_cases import CASES, SERVING, serving_case  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import policy_score as ps  # noqa: E402
@@ -89,6 +95,64 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 16, 4, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         fa.flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", list(CASES) + list(SERVING))
+def test_decode_attention_kernel_matches_plain(cuda_device, dtype, case):
+    b, t, h, kh, d, splits, kv_block, lengths = (
+        CASES[case] if case in CASES else serving_case(case))
+    rng = np.random.default_rng(t + h)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape) * 0.3).to(
+        cuda_device, TORCH[dtype])
+        for shape in [(b, h, d), (b, t, kh, d), (b, t, kh, d)])
+    lens = (rng.integers(1, t + 1, b) if lengths is None
+            else np.array(lengths))
+    lens = torch.from_numpy(lens).to(cuda_device, torch.int32)
+    before = da.decode_attention_cuda.launches
+    out = ops.decode_attention(q, k, v, lens, splits=splits,
+                               kv_block=kv_block)
+    torch.cuda.synchronize()
+    assert da.decode_attention_cuda.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    want = da.decode_attention_plain(q, k, v, lens, splits=splits,
+                                     kv_block=kv_block)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros(2, 4, 32, device=cuda_device)
+    kv = torch.zeros(2, 128, 2, 32, device=cuda_device)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    before = da.decode_attention_cuda.launches
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        da.decode_attention_cuda(q.half(), kv.half(), kv.half(), lens)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        da.decode_attention_cuda(q, kv.bfloat16(), kv.bfloat16(), lens)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        da.decode_attention_cuda(q, kv, kv, lens.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        da.decode_attention_cuda(q, kv, kv, lens.long())
+    with pytest.raises(ValueError, match="head_dim"):
+        da.decode_attention_cuda(q[..., :24].contiguous(),
+                                 kv[..., :24].contiguous(),
+                                 kv[..., :24].contiguous(), lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        wide = torch.zeros(2, 130, 32, device=cuda_device)
+        da.decode_attention_cuda(wide, kv[:, :, :1].contiguous(),
+                                 kv[:, :, :1].contiguous(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention_cuda(q, kv.transpose(0, 1).contiguous()
+                                 .transpose(0, 1), kv, lens)
+    with pytest.raises(ValueError, match="T=1000"):
+        big = torch.zeros(2, 1000, 2, 32, device=cuda_device)
+        da.decode_attention_cuda(q, big, big, lens)
+    assert da.decode_attention_cuda.launches == before
 
 
 def _close_scaled(got, want, frac, rtol):

@@ -32,9 +32,9 @@ def _run(code: str, env=None) -> subprocess.CompletedProcess:
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.serving.engine" in mods
-    for name in ("kernels.flash_attention", "kernels.ssd_scan",
-                 "kernels.rglru_scan", "models.mamba2", "models.rglru",
-                 "core.control_plane", "core.scheduler",
+    for name in ("kernels.flash_attention", "kernels.decode_attention",
+                 "kernels.ssd_scan", "kernels.rglru_scan", "models.mamba2",
+                 "models.rglru", "core.control_plane", "core.scheduler",
                  "kernels.policy_score"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
@@ -85,7 +85,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     env["PATH"] = str(tmp_path)             # no nvcc anywhere on it
     env.pop("CUDA_HOME", None)
     proc = _run("from repro_torch.kernels import (flash_attention, ops,\n"
-                "    rglru_scan, ssd_scan, policy_score, _build)\n"
+                "    decode_attention, rglru_scan, ssd_scan, policy_score,\n"
+                "    _build)\n"
                 "import torch\n"
                 "q = torch.zeros(1, 16, 4, 32)\n"
                 "ops.flash_attention(q, q[:, :, :2], q[:, :, :2])\n"
@@ -94,7 +95,11 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
                 "ops.ssd_scan(x, x[..., 0], torch.zeros(2), bc, bc, "
                 "chunk=16)\n"
                 "ops.rglru_scan(q[..., 0], q[..., 0])\n"
+                "ops.decode_attention(q[:, 0], q[:, :, :2], q[:, :, :2],\n"
+                "    torch.full((1,), 5, dtype=torch.int32))\n"
                 "assert flash_attention.flash_attention_cuda.launches == 0\n"
+                "assert decode_attention.decode_attention_cuda.launches"
+                " == 0\n"
                 "assert ssd_scan.ssd_scan_cuda.launches == 0\n"
                 "c = torch.zeros(2, 5)\n"
                 "a = torch.ones(2, 5, dtype=torch.bool)\n"

@@ -35,10 +35,13 @@ Phases, each printing its numbers on lines of its own:
   1. the card's name and power limit, as nvidia-smi gives them;
   2. build the five kernel sources from the checkout, one nvcc each, all
      started together; print the seconds and ptxas's registers and spills
-     per kernel instance;
+     per kernel instance; every bf16 instance of K3 must hold HGMMA
+     (wgmma) in its SASS and spill nothing;
   3. hold every kernel against its plain PyTorch version on the cases of
      tests/test_kernels.py and at the serving paths' shapes, each tolerance
-     printed beside the output's mean |value|; K1 and K2 bit-equal on the
+     printed beside the output's mean |value|; K3 on the cases of
+     ``tests/flash_attention_cases.py`` and at every prefill bucket of both
+     paths; K1 and K2 bit-equal on the
      cases of ``tests/policy_score_cases.py`` at the admission path's
      shapes and a registry-scale one; K4, through its entry point
      ``ops.decode_attention``, on the cases of
@@ -50,7 +53,8 @@ Phases, each printing its numbers on lines of its own:
      K2 at the admission path's F x P and at F=4096, P=1024) beside its
      plain version, its bound on the card and, where one PyTorch call
      computes the same function, that call (SDPA for K3: a yardstick the
-     port never calls); K4 at both serving caches with lengths = T beside
+     port never calls), K3 and SDPA also by device time inside a CUDA
+     graph; K4 at both serving caches with lengths = T beside
      its plain version, ``layers.attend`` (what decode runs) and SDPA with a
      boolean length mask; time the admission decision as the path makes
      it, host-to-device copies included;
@@ -92,7 +96,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 # the seeded kernel cases that the tests share (tests/policy_score_cases.py,
-# tests/decode_attention_cases.py)
+# tests/flash_attention_cases.py, tests/decode_attention_cases.py)
 sys.path.insert(1, str(ROOT / "tests"))
 
 DEV = "cuda"
@@ -119,18 +123,6 @@ TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-4, 2 ** -7)}
 # 2e-5 * m and rtol 1e-5.
 SCALED_TOL = {"ssd_f32": (1e-4, 1e-5), "ssd_bf16": (1e-3, 2 ** -7),
               "rglru": (2e-5, 1e-5)}
-FLASH_CASES = [                   # tests/test_kernels.py:20-49, + ragged
-    # (b, s, h, kh, d, q_block, kv_block, causal, window)
-    (1, 128, 4, 4, 32, 64, 64, True, None),
-    (2, 256, 8, 2, 64, 64, 128, True, None),
-    (1, 64, 4, 1, 32, 64, 32, True, None),
-    (2, 256, 4, 2, 32, 64, 64, True, 32),
-    (2, 256, 4, 2, 32, 64, 64, True, 96),
-    (2, 256, 4, 2, 32, 64, 64, True, 1024),
-    (1, 128, 4, 4, 32, 64, 64, False, None),
-    (1, 100, 4, 2, 32, 64, 48, True, None),
-    (1, 100, 4, 2, 32, 32, 64, True, 40),
-]
 # qwen3-0.6b's prefill buckets (B=1, H=16, KH=8, D=128), and 16
 QWEN_SEQS = (16, 64, 128, 256, 512, 1024)
 # recurrentgemma-9b's local attention (H=16, KH=1, D=256, window 2048) at
@@ -244,6 +236,30 @@ def build_kernels():
                 for r in _build.ptxas_summary(name)]
         say("build", source=f"src/repro_torch/csrc/{name}.cu",
             seconds=seconds[name], kernels=rows)
+    check_tensor_cores()
+
+
+def check_tensor_cores():
+    """Every bf16 instance of K3 (one per head_dim) runs its products on the
+    tensor cores, HGMMA in its SASS, and spills nothing: a kernel that lost
+    the wgmma route, or its registers, fails here."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    sass = _build.sass("flash_attention")
+    rows = [r for r in _build.ptxas_summary("flash_attention")
+            if "__nv_bfloat16" in r["function"]]
+    found = [dict(function=_short(r["function"]),
+                  hgmma=sass.get(r["function"], "").count("HGMMA"),
+                  registers=r.get("registers"),
+                  spill_bytes=r["spill_stores"] + r["spill_loads"])
+             for r in rows]
+    ok = (len(found) == len(fa.HEAD_DIMS)
+          and all(f["hgmma"] > 0 and f["spill_bytes"] == 0 for f in found))
+    say("tensor_cores", source="src/repro_torch/csrc/flash_attention.cu",
+        bf16_instances=found, ok=ok)
+    if not ok:
+        raise AssertionError(f"K3's bf16 instances must each hold HGMMA and "
+                             f"spill nothing: {found}")
 
 
 # ---------------------------------------------------------------------------
@@ -272,25 +288,29 @@ def _qkv(rng, b, s, h, kh, d, dtype):
 def check_flash():
     """Returns the largest bf16 abs error at each path's shapes: (qwen3,
     D=128; recurrentgemma, D=256)."""
+    from flash_attention_cases import CARD_CASES, card_inputs
     from repro_torch.kernels import flash_attention as fa
     rng = gen(0)
-    cases = [(c, None) for c in FLASH_CASES]
-    cases += [((1, s, 16, 8, 128, min(128, s), min(128, s), True, None),
-               "d128") for s in QWEN_SEQS]
-    cases += [((1, s, 16, 1, 256, 128, 128, True, HYBRID_WINDOW), "d256")
+    cases = [(c, None) for c in CARD_CASES]
+    cases += [((1, s, s, 16, 8, 128, True, None), "d128")
+              for s in QWEN_SEQS]
+    cases += [((1, s, s, 16, 1, 256, True, HYBRID_WINDOW), "d256")
               for s in HYBRID_SEQS]
     worst = {"d128": 0.0, "d256": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for (b, s, h, kh, d, qb, kb, causal, window), path in cases:
-            q, k, v = _qkv(rng, b, s, h, kh, d, dtype)
+        for (b, s, t, h, kh, d, causal, window), path in cases:
+            if path:
+                q, k, v = _qkv(rng, b, s, h, kh, d, dtype)
+            else:
+                q, k, v = (on_card(x, dtype)
+                           for x in card_inputs(b, s, t, h, kh, d))
             got = fa.flash_attention_cuda(q, k, v, causal=causal,
                                           window=window)
             torch.cuda.synchronize()
             want = fa.flash_attention_plain(q, k, v, causal=causal,
-                                            window=window, q_block=qb,
-                                            kv_block=kb)
+                                            window=window)
             err = _verdict("flash_attention", got, want, *TOL[dtype],
-                           dtype=str(dtype), shape=[b, s, h, kh, d],
+                           dtype=str(dtype), shape=[b, s, t, h, kh, d],
                            causal=causal, window=window)
             if path and dtype == torch.bfloat16:
                 worst[path] = max(worst[path], err)
@@ -448,7 +468,9 @@ def decode_bound(b, t, h, kh, d, lengths):
 
 def time_flash():
     """K3 at qwen3's S=1024 and 4096 (D=128) and recurrentgemma's S=1024
-    (D=256, window 2048)."""
+    (D=256, window 2048), by CUDA events over back-to-back calls (host
+    launch cost included), and K3's and SDPA's device time a call inside a
+    CUDA graph."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rng = gen(3)
@@ -472,6 +494,11 @@ def time_flash():
                 q, k, v, causal=True, window=window, q_block=blk,
                 kv_block=blk), 3, 1),
             bound_ms=bound_ms, bound_by=bound_by)
+        row["graph_device_ms"] = {
+            "kernel": graph_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, causal=True, window=window)),
+            "library": graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))}
         say("time", kernel="flash_attention", dtype="bf16",
             shape=[b, s, h, kh, d], window=window, library="SDPA", **row)
         rows[path] = row
@@ -1116,14 +1143,18 @@ def main() -> int:
                 "library_ms": t["library_ms"]}
 
     print(json.dumps({"kernels": [
-        entry("flash_attention", "flash_attention",
-              "src/repro/kernels/flash_attention.py:80",
-              launches["qwen3-0.6b"]["flash_attention"], err_fa["d128"],
-              t_fa["d128"]),
-        entry("flash_attention_d256", "flash_attention",
-              "src/repro/kernels/flash_attention.py:80",
-              launches["recurrentgemma-9b"]["flash_attention"],
-              err_fa["d256"], t_fa["d256"]),
+        # K3 at qwen3's S=1024; the same at S=4096 beside it
+        dict(entry("flash_attention", "flash_attention",
+                   "src/repro/kernels/flash_attention.py:80",
+                   launches["qwen3-0.6b"]["flash_attention"], err_fa["d128"],
+                   t_fa["d128"]),
+             graph_device_ms=t_fa["d128"]["graph_device_ms"],
+             s4096=t_fa["d128_4096"]),
+        dict(entry("flash_attention_d256", "flash_attention",
+                   "src/repro/kernels/flash_attention.py:80",
+                   launches["recurrentgemma-9b"]["flash_attention"],
+                   err_fa["d256"], t_fa["d256"]),
+             graph_device_ms=t_fa["d256"]["graph_device_ms"]),
         entry("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:75",
               launches["mamba2-2.7b"]["ssd_scan"], err_ssd, t_ssd),
         entry("rglru_scan", "rglru_scan",

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use (or all at once by ``build_all``, one ``nvcc`` per source in parallel)
-into ``repro_torch/_build/<name>-<hash>.so`` (the hash covers the source
-and the flags, so an edited source is rebuilt; the directory is listed in
-``.gitignore``). ``nvcc``'s own report, registers and shared memory per
-kernel from ``-Xptxas -v``, is kept beside the library as ``.log``.
+into ``repro_torch/_build/<name>-<hash>.so`` (the hash covers the source,
+the ``csrc/*.cuh`` headers it includes and the flags, so an edited source or
+header is rebuilt; the directory is listed in ``.gitignore``). ``nvcc``'s
+own report, registers and shared memory per kernel from ``-Xptxas -v``, is
+kept beside the library as ``.log``.
 
 Nothing here runs at import: the CPU tests import every module on a machine
 with no ``nvcc``.
@@ -43,11 +44,30 @@ def nvcc_path() -> str:
                        "CUDA kernels cannot be built without it")
 
 
+def headers(src: Path) -> List[Path]:
+    """The ``csrc/*.cuh`` that ``src`` includes (``#include "x.cuh"``), and
+    those they include, in the order first seen."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+\.cuh)"',
+                               todo.pop().read_text(), re.M):
+            path = CSRC_DIR / name
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built: the name carries a hash of the
+    source, of every header it includes and of the flags."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in headers(src):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
@@ -125,6 +145,16 @@ def _demangle(names: List[str]) -> List[str]:
             if proc.returncode == 0 and len(out) == len(names):
                 return out
     return names
+
+
+def sass(name: str) -> Dict[str, str]:
+    """Each kernel's machine code (SASS) in the built ``csrc/<name>.cu``, by
+    demangled name, as the toolkit's ``cuobjdump --dump-sass`` shows it."""
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "--dump-sass", str(library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    parts = re.split(r"^\s*Function : (\S+)\s*$", out, flags=re.M)
+    return dict(zip(_demangle(parts[1::2]), parts[2::2]))
 
 
 def ptxas_summary(name: str) -> List[Dict[str, object]]:

@@ -35,26 +35,32 @@ Phases, each printing its numbers on lines of its own:
   1. the card's name and power limit, as nvidia-smi gives them;
   2. build the five kernel sources from the checkout, one nvcc each, all
      started together; print the seconds and ptxas's registers and spills
-     per kernel instance; every bf16 instance of K3 must hold HGMMA
-     (wgmma) in its SASS and spill nothing;
+     per kernel instance; every bf16 instance of K3 and both bf16 kernels
+     of K5 must hold HGMMA (wgmma) in their SASS, every bf16 instance of K4
+     for groups of more than 8 HMMA (mma.sync), and no bf16 instance of K3,
+     K4 or K5 may spill;
   3. hold every kernel against its plain PyTorch version on the cases of
      tests/test_kernels.py and at the serving paths' shapes, each tolerance
      printed beside the output's mean |value|; K3 on the cases of
      ``tests/flash_attention_cases.py`` and at every prefill bucket of both
-     paths; K1 and K2 bit-equal on the
+     paths; K5 on the cases of ``tests/ssd_scan_cases.py`` (f32 and bf16)
+     and its large-decay case at full width; K1 and K2 bit-equal on the
      cases of ``tests/policy_score_cases.py`` at the admission path's
      shapes and a registry-scale one; K4, through its entry point
      ``ops.decode_attention``, on the cases of
      ``tests/decode_attention_cases.py``: tests/test_kernels.py's, lengths
-     0, 1, T, split_len and split_len + 1, T=1152 and T=100, and both
-     serving caches (B=4, T=1152; qwen3-0.6b's KH=8, D=128 and
-     recurrentgemma-9b's local KH=1, D=256);
+     0, 1, T, split_len and split_len + 1, T=1152 and T=100, groups of 16
+     to 64, and both serving caches (B=4, T=1152; qwen3-0.6b's KH=8, D=128
+     and recurrentgemma-9b's local KH=1, D=256), where one call must run
+     one kernel on the card (the kernel nodes of a CUDA-graph capture);
   4. time every kernel at its path's full-width shape with S=1024 (K1 and
      K2 at the admission path's F x P and at F=4096, P=1024) beside its
      plain version, its bound on the card and, where one PyTorch call
      computes the same function, that call (SDPA for K3: a yardstick the
      port never calls), K3 and SDPA also by device time inside a CUDA
-     graph; K4 at both serving caches with lengths = T beside
+     graph; K5 also at the serving buckets S=256, 512 and 768, by device
+     time in a CUDA graph, with its kernels a call; K4 at both serving
+     caches with lengths = T beside
      its plain version, ``layers.attend`` (what decode runs) and SDPA with a
      boolean length mask; time the admission decision as the path makes
      it, host-to-device copies included;
@@ -96,7 +102,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 # the seeded kernel cases that the tests share (tests/policy_score_cases.py,
-# tests/flash_attention_cases.py, tests/decode_attention_cases.py)
+# tests/flash_attention_cases.py, tests/decode_attention_cases.py,
+# tests/ssd_scan_cases.py)
 sys.path.insert(1, str(ROOT / "tests"))
 
 DEV = "cuda"
@@ -129,14 +136,6 @@ QWEN_SEQS = (16, 64, 128, 256, 512, 1024)
 # two buckets, and at S=4096, where the window masks
 HYBRID_SEQS = (128, 1024, 4096)
 HYBRID_WINDOW = 2048
-SSD_CASES = [                     # tests/test_kernels.py:69-73, + full width
-    # (b, s, h, p, g, n, chunk)
-    (1, 64, 2, 16, 1, 16, 16),
-    (2, 128, 4, 32, 2, 16, 32),
-    (1, 256, 8, 16, 1, 32, 64),
-    (1, 256, 80, 64, 1, 128, 256),
-    (1, 1024, 80, 64, 1, 128, 256),
-]
 RGLRU_CASES = [                   # tests/test_kernels.py:96-100, + full width
     # (b, s, w)
     (1, 64, 32), (2, 128, 64), (1, 256, 128), (1, 64, 4096), (1, 1024, 4096),
@@ -239,27 +238,46 @@ def build_kernels():
     check_tensor_cores()
 
 
-def check_tensor_cores():
-    """Every bf16 instance of K3 (one per head_dim) runs its products on the
-    tensor cores, HGMMA in its SASS, and spills nothing: a kernel that lost
-    the wgmma route, or its registers, fails here."""
+def _instances(source, want):
+    """ptxas's rows for the kernels of ``csrc/<source>.cu`` whose name
+    holds ``want``, with their HGMMA (wgmma) and HMMA (mma.sync) counts in
+    the SASS and their spill bytes."""
     from repro_torch.kernels import _build
+    sass = _build.sass(source)
+    return [dict(function=_short(r["function"]),
+                 hgmma=sass.get(r["function"], "").count("HGMMA"),
+                 hmma=sass.get(r["function"], "").count("HMMA"),
+                 registers=r.get("registers"),
+                 spill_bytes=r["spill_stores"] + r["spill_loads"])
+            for r in _build.ptxas_summary(source) if want in r["function"]]
+
+
+def check_tensor_cores():
+    """The bf16 instances run their products on the tensor cores and spill
+    nothing: every bf16 K3 instance (one per head_dim) and both K5 kernels
+    hold HGMMA (wgmma) in their SASS, every K4 instance for groups of more
+    than 8 holds HMMA (mma.sync), and no bf16 instance of K3, K4 or K5
+    spills. A kernel that lost its tensor-core route, or its registers,
+    fails here."""
     from repro_torch.kernels import flash_attention as fa
-    sass = _build.sass("flash_attention")
-    rows = [r for r in _build.ptxas_summary("flash_attention")
-            if "__nv_bfloat16" in r["function"]]
-    found = [dict(function=_short(r["function"]),
-                  hgmma=sass.get(r["function"], "").count("HGMMA"),
-                  registers=r.get("registers"),
-                  spill_bytes=r["spill_stores"] + r["spill_loads"])
-             for r in rows]
-    ok = (len(found) == len(fa.HEAD_DIMS)
-          and all(f["hgmma"] > 0 and f["spill_bytes"] == 0 for f in found))
-    say("tensor_cores", source="src/repro_torch/csrc/flash_attention.cu",
-        bf16_instances=found, ok=ok)
+    k3 = _instances("flash_attention", "__nv_bfloat16")
+    k4 = _instances("decode_attention", "__nv_bfloat16")
+    k4_mma = [f for f in k4 if "decode_mma_bf16" in f["function"]]
+    k5 = [f for name in ("ssd_state_cb", "ssd_out")
+          for f in _instances("ssd_scan", name)]
+    # K4's tensor-core instances: blocks of 16, 32 and 64 rows at D=32 and
+    # 64, of 16 and 32 at D=128, of 16 at D=256
+    ok = (len(k3) == len(fa.HEAD_DIMS) and len(k5) == 2
+          and len(k4_mma) == 9
+          and all(f["hgmma"] > 0 for f in k3 + k5)
+          and all(f["hmma"] > 0 for f in k4_mma)
+          and all(f["spill_bytes"] == 0 for f in k3 + k4 + k5))
+    say("tensor_cores", flash_attention_bf16=k3, decode_attention_bf16=k4,
+        ssd_scan_bf16=k5, ok=ok)
     if not ok:
-        raise AssertionError(f"K3's bf16 instances must each hold HGMMA and "
-                             f"spill nothing: {found}")
+        raise AssertionError(f"bf16 instances must hold their tensor-core "
+                             f"products and spill nothing: K3 {k3}, K4 {k4}, "
+                             f"K5 {k5}")
 
 
 # ---------------------------------------------------------------------------
@@ -317,38 +335,40 @@ def check_flash():
     return worst
 
 
-def _ssd_inputs(rng, b, s, h, p, g, n, dtype):
-    x = on_card(rng.normal(size=(b, s, h, p)), dtype)
-    dt = on_card(np.abs(rng.normal(size=(b, s, h))) * 0.1 + 0.01)
-    A = on_card(-np.abs(rng.normal(size=h)) - 0.1)
-    Bm = on_card(rng.normal(size=(b, s, g, n)), dtype)
-    Cm = on_card(rng.normal(size=(b, s, g, n)), dtype)
-    return x, dt, A, Bm, Cm
+def _ssd_inputs(case, dtype, large_decay=False):
+    from ssd_scan_cases import inputs
+    x, dt, A, Bm, Cm = inputs(*case, large_decay=large_decay)
+    return (on_card(x, dtype), on_card(dt), on_card(A), on_card(Bm, dtype),
+            on_card(Cm, dtype))
 
 
 def check_ssd() -> float:
-    """Returns the largest abs error of bf16 y at the full-width shapes."""
+    """K5 on the cases of ``tests/ssd_scan_cases.py`` (f32 and bf16) and
+    the large-decay case at full width (bf16). Returns the largest abs error
+    of bf16 y at the full-width shapes."""
+    from ssd_scan_cases import CASES, LARGE_DECAY
     from repro_torch.kernels import ssd_scan as ssd
-    rng = gen(1)
     worst = 0.0
-    for dtype, tol in ((torch.float32, "ssd_f32"),
-                       (torch.bfloat16, "ssd_bf16")):
-        for b, s, h, p, g, n, chunk in SSD_CASES:
-            args = _ssd_inputs(rng, b, s, h, p, g, n, dtype)
-            y, fin = ssd.ssd_scan_cuda(*args, chunk=chunk)
-            torch.cuda.synchronize()
-            yw, finw = ssd.ssd_scan_plain(*args, chunk=chunk)
-            case = dict(dtype=str(dtype), shape=[b, s, h, p, g, n],
-                        chunk=chunk)
-            frac, rtol = SCALED_TOL[tol]
-            err = _verdict("ssd_scan", y, yw,
-                           frac * float(yw.float().abs().mean()), rtol,
-                           output="y", frac_of_mean=frac, **case)
-            frac, rtol = SCALED_TOL["ssd_f32"]
-            _verdict("ssd_scan", fin, finw, frac * float(finw.abs().mean()),
-                     rtol, output="final_state", frac_of_mean=frac, **case)
-            if dtype == torch.bfloat16 and h == 80:
-                worst = max(worst, err)
+    runs = [(c, dtype, False) for dtype in (torch.float32, torch.bfloat16)
+            for c in CASES] + [(LARGE_DECAY, torch.bfloat16, True)]
+    for case, dtype, large in runs:
+        b, s, h, p, g, n, chunk = case
+        args = _ssd_inputs(case, dtype, large)
+        y, fin = ssd.ssd_scan_cuda(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        yw, finw = ssd.ssd_scan_plain(*args, chunk=chunk)
+        info = dict(dtype=str(dtype), shape=[b, s, h, p, g, n], chunk=chunk,
+                    large_decay=large)
+        frac, rtol = SCALED_TOL["ssd_bf16" if dtype == torch.bfloat16
+                                else "ssd_f32"]
+        err = _verdict("ssd_scan", y, yw,
+                       frac * float(yw.float().abs().mean()), rtol,
+                       output="y", frac_of_mean=frac, **info)
+        frac, rtol = SCALED_TOL["ssd_f32"]
+        _verdict("ssd_scan", fin, finw, frac * float(finw.abs().mean()),
+                 rtol, output="final_state", frac_of_mean=frac, **info)
+        if dtype == torch.bfloat16 and h == 80:
+            worst = max(worst, err)
     return worst
 
 
@@ -388,18 +408,21 @@ def _decode_inputs(rng, b, t, h, kh, d, lengths, dtype):
     return q, k, v, on_card(np.asarray(lens), torch.int32)
 
 
-def check_decode() -> float:
+def check_decode():
     """K4, through its entry point ``ops.decode_attention``, against its
     plain version on the shared cases (f32 and bf16) and at the serving
     caches with ragged lengths (bf16, as the caches are). Returns the
-    largest bf16 abs error at the serving caches."""
+    largest bf16 abs error at the serving caches and, by serving cache, the
+    kernels that one call launched (from a CUDA-graph capture)."""
     from decode_attention_cases import CASES, SERVING, serving_case
+    from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     rng = gen(9)
-    cases = [(c, False) for c in CASES.values()]
-    cases += [(serving_case(name), True) for name in SERVING]
+    cases = [(c, None) for c in CASES.values()]
+    cases += [(serving_case(name), name) for name in SERVING]
     worst = 0.0
+    kernels = {}
     for dtype in (torch.float32, torch.bfloat16):
         for (b, t, h, kh, d, splits, kv_block, lengths), serving in cases:
             if serving and dtype == torch.float32:
@@ -420,7 +443,15 @@ def check_decode() -> float:
                            kv_block=kv_block)
             if serving:
                 worst = max(worst, err)
-    return worst
+                # one kernel on the card a call: the splits combine in
+                # their cluster
+                kernels[serving] = names = _build.graph_kernels(
+                    lambda: ops.decode_attention(q, k, v, lens, splits=splits,
+                                                 kv_block=kv_block))
+                if len(names) != 1:
+                    raise AssertionError(f"ops.decode_attention ran {names}")
+    say("check", kernel="decode_attention", kernels_per_call=kernels, ok=True)
+    return worst, kernels
 
 
 # ---------------------------------------------------------------------------
@@ -506,18 +537,35 @@ def time_flash():
 
 
 def time_ssd():
-    """K5 at mamba2-2.7b's full width, S=1024, bf16 x/B/C as in serving."""
+    """K5 at mamba2-2.7b's full width, bf16 x/B/C as in serving, at the
+    serving prefill buckets S = 256, 512, 768 (chunk 256) and S = 1024: by
+    CUDA events over back-to-back calls (host launch cost included) and by
+    device time a call inside a CUDA graph; its plain version; the kernels
+    a call (from a CUDA-graph capture). Returns the rows by S."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as ssd
-    shape = (1, 1024, 80, 64, 1, 128)
-    args = _ssd_inputs(gen(4), *shape, torch.bfloat16)
-    bound_ms, bound_by = ssd_bound(*shape, 256)
-    row = dict(ms=event_ms(lambda: ssd.ssd_scan_cuda(*args, chunk=256), 20),
-               plain_ms=event_ms(lambda: ssd.ssd_scan_plain(
-                   *args, chunk=256), 3, 1),
-               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    say("time", kernel="ssd_scan", dtype="bf16", shape=list(shape), chunk=256,
-        library="none: no single PyTorch call computes the SSD scan", **row)
-    return row
+    rows = {}
+    for s in (256, 512, 768, 1024):
+        shape = (1, s, 80, 64, 1, 128)
+        args = _ssd_inputs((*shape, 256), torch.bfloat16)
+        bound_ms, bound_by = ssd_bound(*shape, 256)
+        row = dict(
+            ms=event_ms(lambda: ssd.ssd_scan_cuda(*args, chunk=256), 50),
+            plain_ms=event_ms(lambda: ssd.ssd_scan_plain(*args, chunk=256),
+                              3, 1),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        row["graph_device_ms"] = graph_ms(
+            lambda: ssd.ssd_scan_cuda(*args, chunk=256))
+        row["kernels_per_call"] = _build.graph_kernels(
+            lambda: ssd.ssd_scan_cuda(*args, chunk=256))
+        if len(row["kernels_per_call"]) != ssd.BF16_KERNELS:
+            raise AssertionError(f"K5 ran {row['kernels_per_call']}")
+        say("time", kernel="ssd_scan", dtype="bf16", shape=list(shape),
+            chunk=256,
+            library="none: no single PyTorch call computes the SSD scan",
+            **row)
+        rows[s] = row
+    return rows
 
 
 def time_decode():
@@ -1122,7 +1170,7 @@ def main() -> int:
     err_ssd = check_ssd()
     err_rg = check_rglru()
     err_ps = check_policy_score()
-    err_da = check_decode()
+    err_da, k4_kernels = check_decode()
     t_fa, t_ssd, t_rg = time_flash(), time_ssd(), time_rglru()
     t_da = time_decode()
     t_ps = time_policy_score()
@@ -1155,8 +1203,17 @@ def main() -> int:
                    launches["recurrentgemma-9b"]["flash_attention"],
                    err_fa["d256"], t_fa["d256"]),
              graph_device_ms=t_fa["d256"]["graph_device_ms"]),
-        entry("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:75",
-              launches["mamba2-2.7b"]["ssd_scan"], err_ssd, t_ssd),
+        # at S=1024; the serving buckets 256/512/768 beside it. "launches"
+        # counts wrapper calls; each bf16 call runs kernels_per_call kernels
+        dict(entry("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:75",
+                   launches["mamba2-2.7b"]["ssd_scan"], err_ssd, t_ssd[1024]),
+             graph_device_ms=t_ssd[1024]["graph_device_ms"],
+             kernels_per_call=len(t_ssd[1024]["kernels_per_call"]),
+             buckets={s: dict(ms=t_ssd[s]["ms"],
+                              graph_device_ms=t_ssd[s]["graph_device_ms"],
+                              bound_ms=t_ssd[s]["bound_ms"],
+                              plain_ms=t_ssd[s]["plain_ms"])
+                      for s in (256, 512, 768)}),
         entry("rglru_scan", "rglru_scan",
               "src/repro/kernels/rglru_scan.py:48",
               launches["recurrentgemma-9b"]["rglru_scan"], err_rg, t_rg),
@@ -1178,9 +1235,12 @@ def main() -> int:
                    sum(run["decode_attention"] for run in launches.values()),
                    err_da, t_da["d128"]),
              attend_ms=t_da["d128"]["attend_ms"],
+             graph_device_ms=t_da["d128"]["graph_device_ms"],
+             kernels_per_call=len(k4_kernels["d128"]),
              cache_phase_launches=cache_launches,
              shape=list(SERVING["d128"]),
-             d256=dict(t_da["d256"], shape=list(SERVING["d256"]))),
+             d256=dict(t_da["d256"], shape=list(SERVING["d256"]),
+                       kernels_per_call=len(k4_kernels["d256"]))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks in hand-written PTX: mbarriers, TMA tile
-// loads, shared-memory swizzles, wgmma matrix descriptors and the wgmma
-// products that the port's tensor-core kernels issue.
+// loads, shared-memory swizzles, ldmatrix loads, the
+// mma.sync m16n8k16 product and the bf16 hi + lo split of f32 operands,
+// wgmma matrix descriptors and the wgmma products that the port's
+// tensor-core kernels issue.
 //
 // Layouts. A tile that TMA writes with a 128-byte (64-byte) swizzle is a run
 // of rows of 128 (64) bytes whose 16-byte pieces are permuted: piece p of
@@ -88,6 +90,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // --- TMA -----------------------------------------------------------------------
 
+// fetches a tensor map (a __grid_constant__ kernel parameter) into the
+// descriptor cache ahead of its first TMA copy
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(
+                   map))
+               : "memory");
+}
+
 // one box of a 4-D tensor map into shared memory; completion is counted in
 // bytes on `bar`. Coordinates are innermost first; a box that runs past the
 // tensor's edge is filled with zeros.
@@ -106,6 +116,88 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 // async proxy (wgmma, TMA)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// --- distributed shared memory ---------------------------------------------------
+
+// the shared::cluster address of `p` (this block's shared memory) in the
+// block of rank `rank` of the cluster
+__device__ __forceinline__ uint32_t dsmem_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float dsmem_ld(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 dsmem_ld4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// --- ldmatrix, mma.sync ---------------------------------------------------------
+
+// four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. Without .trans a lane receives (row lane/4,
+// columns 2*(lane%4), +1) of each matrix, with .trans the transpose.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+// two matrices: lanes 0-15 give the addresses
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
+// d (16 x 8, f32) += A (16 x 16, bf16, row) . B (16 x 8, bf16, col), one
+// warp. Fragments (g = lane / 4, t = lane % 4): a = {(g, 2t..2t+1),
+// (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)}; b = {(k 2t..2t+1, n g),
+// (k 2t+8.., n g)}; d = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> a bf16 pair (low half = x0) and the pair of what rounding
+// left, so that hi + lo carries the f32 values to ~16 bits
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 back = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - back.x, x1 - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // --- wgmma -----------------------------------------------------------------------

@@ -182,3 +182,48 @@ def ptxas_summary(name: str) -> List[Dict[str, object]]:
     for row, full in zip(rows, _demangle([r["function"] for r in rows])):
         row["function"] = full
     return rows
+
+
+def _cu(result: int, what: str) -> None:
+    if result != 0:
+        raise RuntimeError(f"{what} failed: CUresult {result}")
+
+
+def graph_kernels(fn) -> List[str]:
+    """The kernels that one call of ``fn`` launches on the current card, by
+    demangled name in the order of capture: the kernel nodes of a CUDA graph
+    captured from the call, read through the driver's graph API. A capture
+    records every launch of the call and nothing else, so the count is
+    exact; memory copies and sets are other node types and are not
+    listed."""
+    import torch
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, byref = ctypes.c_void_p, ctypes.byref
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = vp(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    _cu(cu.cuGraphGetNodes(raw, None, byref(count)), "cuGraphGetNodes")
+    nodes = (vp * count.value)()
+    _cu(cu.cuGraphGetNodes(raw, nodes, byref(count)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        _cu(cu.cuGraphNodeGetType(vp(node), byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:                     # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func first, kern at byte 56
+        params = (ctypes.c_uint64 * 16)()
+        _cu(cu.cuGraphKernelNodeGetParams_v2(vp(node), params),
+            "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params[0]:
+            _cu(cu.cuFuncGetName(byref(name), vp(params[0])), "cuFuncGetName")
+        else:
+            _cu(cu.cuKernelGetName(byref(name), vp(params[7])),
+                "cuKernelGetName")
+        names.append(name.value.decode())
+    del graph
+    return _demangle(names) if names else names

@@ -19,11 +19,15 @@ online-softmax state (m, l, acc) and the finite ``NEG_INF`` mask, then the
 combine of the splits by their global max. It runs for CPU tensors, and on
 the card it is what the kernel is held against.
 
-``decode_attention_cuda`` launches the kernel. It takes CUDA tensors only,
-counts its launches in ``decode_attention_cuda.launches``, and raises when
-the launch fails; it never falls back to the plain version. The kernel picks
-its own split count (about two blocks per SM of the card it runs on), which
-changes only the rounding; ``splits``/``kv_block`` decide only which shapes it accepts.
+``decode_attention_cuda`` launches the kernel: one launch a call, the
+splits of each (batch row, kv head) one thread-block cluster that combines
+its partials in distributed shared memory, so the wrapper allocates only the
+output. It takes CUDA tensors only, counts its launches in
+``decode_attention_cuda.launches``, and raises when the launch fails; it
+never falls back to the plain version. The kernel picks its own split count
+(``kernel_splits``: about two blocks per SM of the card it runs on, at most
+the cluster the card can co-schedule for the instance), which changes only
+the rounding; ``splits``/``kv_block`` decide only which shapes it accepts.
 """
 from __future__ import annotations
 
@@ -40,6 +44,8 @@ HEAD_DIMS = (32, 64, 128, 256)   # the kernel's template instances
 MAX_GROUP = 64                   # q heads per kv head its shared memory holds
 KEY_TILE = 32                    # keys per tile of the kernel
 BLOCKS_PER_SM = 2                # the kernel's split target
+MAX_SPLITS = 16                  # blocks of one cluster (Hopper's limit)
+MMA_MIN_GROUP = 9                # bf16 groups this wide use the tensor cores
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,15 +123,17 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, d).to(q.dtype)
 
 
-def kernel_splits(b: int, kh: int, t: int,
-                  target_blocks: int) -> Tuple[int, int]:
-    """The kernel's (split count, keys a split): whole tiles of KEY_TILE
-    keys, about ``target_blocks`` blocks over (batch, kv head, split), at
-    least one tile a block."""
-    tiles = -(-t // KEY_TILE)
-    want = min(max(1, -(-target_blocks // (b * kh))), tiles)
-    per = -(-tiles // want)
-    return -(-tiles // per), per * KEY_TILE
+def kernel_splits(b: int, kh: int, t: int, target_blocks: int,
+                  max_splits: int = MAX_SPLITS) -> Tuple[int, int]:
+    """The kernel's (split count, keys a split): about ``target_blocks``
+    blocks over (batch, kv head, split), at most ``max_splits`` (the
+    cluster the card can co-schedule) and at most one split per
+    KEY_TILE-key tile; the count is a power of two, the keys are spread
+    evenly (the last split may hold fewer)."""
+    want = min(max(1, -(-target_blocks // (b * kh))), -(-t // KEY_TILE),
+               max_splits)
+    n = 1 << (want.bit_length() - 1)
+    return n, -(-t // n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,7 +142,22 @@ def _target_blocks(device: torch.device) -> int:
     return BLOCKS_PER_SM * sms
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+@functools.lru_cache(maxsize=None)
+def _max_splits(device: torch.device, h: int, kh: int, d: int,
+                bf16: bool) -> int:
+    """The largest cluster (power of two <= MAX_SPLITS) that the card can
+    co-schedule for the kernel instance of (G, D, dtype)."""
+    lib = _library()
+    with torch.cuda.device(device):
+        n = lib.repro_decode_attention_max_splits(h, kh, d, int(bf16))
+    if n < 1:
+        raise RuntimeError(
+            f"decode attention kernel: cluster query failed: CUDA error "
+            f"{-n} ({lib.repro_decode_attention_error_string(-n).decode()})")
+    return min(n, MAX_SPLITS)
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -144,6 +167,8 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
+        lib.repro_decode_attention_max_splits.argtypes = [ctypes.c_int] * 4
+        lib.repro_decode_attention_max_splits.restype = ctypes.c_int
         lib.repro_decode_attention_error_string.argtypes = [ctypes.c_int]
         lib.repro_decode_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -179,23 +204,21 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(x.is_contiguous() for x in (q, k, v, lengths)):
         raise ValueError("the decode attention kernel takes contiguous "
                          "tensors")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("the decode attention kernel reads k and v 16 "
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("the decode attention kernel reads q, k and v 16 "
                          "bytes at a time: they must start 16-byte aligned")
-    n_splits, split_len = kernel_splits(b, kh, t, _target_blocks(q.device))
-    g = h // kh
-    m = torch.empty(b, kh, n_splits, g, device=q.device)
-    l = torch.empty_like(m)
-    acc = torch.empty(b, kh, n_splits, g, d, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    n_splits, split_len = kernel_splits(
+        b, kh, t, _target_blocks(q.device),
+        _max_splits(q.device, h, kh, d, bf16))
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
-            b, t, h, kh, d, int(q.dtype == torch.bfloat16), n_splits,
-            split_len, d ** -0.5, stream)
+            out.data_ptr(), b, t, h, kh, d, int(bf16), n_splits, split_len,
+            d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(
             f"decode attention kernel launch failed: CUDA error {err} "

@@ -13,9 +13,15 @@ next, with the intra-chunk decay evaluated only where i >= j (so a large
 |dt*A| cannot make inf there). It runs for CPU tensors, and on the card it is
 what the kernel is held against.
 
-``ssd_scan_cuda`` launches the kernel. It takes CUDA tensors only, counts its
-launches in ``ssd_scan_cuda.launches``, and raises when the launch fails; it
-never falls back to the plain version.
+``ssd_scan_cuda`` launches the kernel. For bf16 (the serving path) that is
+two kernels a call (``BF16_KERNELS``): C.B^T once per group with the chunk
+states and their recurrence, then the outputs; the wrapper allocates their
+scratch (C.B^T in f32 and the states entering each chunk as bf16 hi + lo).
+The bf16 route reads x, B and C through TMA tensor maps, so it takes head
+dims and state widths that are multiples of 8 (every Mamba-2 configuration
+has them). f32 takes one kernel. It takes CUDA tensors only, counts its calls in
+``ssd_scan_cuda.launches``, and raises when a launch fails; it never falls
+back to the plain version.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from repro_torch.kernels import _build
 
 MAX_STATE = 128     # N: the kernel's per-thread state columns
 MAX_CHUNK = 256     # Q: one step of the in-chunk scan per thread
+BF16_KERNELS = 2    # kernels a bf16 call launches
 
 
 def _check_shapes(x, dt, A, Bm, Cm, chunk):
@@ -84,7 +91,7 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.cat(ys, dim=1), state
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _library() -> ctypes.CDLL:
@@ -122,15 +129,32 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"the SSD scan kernel is built for state width <= "
                          f"{MAX_STATE} and chunk <= {MAX_CHUNK}; got N={n}, "
                          f"chunk={chunk}")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and (p % 8 or n % 8
+                 or any(t.data_ptr() % 16 for t in (x, Bm, Cm))):
+        raise ValueError(f"the SSD scan kernel's bf16 route reads x, B and C "
+                         f"by tensor maps: head dim and state width must be "
+                         f"multiples of 8 and the data 16-byte aligned; got "
+                         f"P={p}, N={n}")
     y = torch.empty_like(x)
     fin = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
+    nc = s // chunk
+    # the bf16 route's scratch: C.B^T per (batch, chunk, group), its 64 x 64
+    # tiles at or below the diagonal in f32 in the order of the second
+    # kernel's register fragments, and the state entering each chunk as
+    # bf16 hi + lo
+    tiles = -(-chunk // 64)
+    cb = torch.empty((b, nc, g, tiles * (tiles + 1) // 2, 4096) if bf16
+                     else (0,), dtype=torch.float32, device=x.device)
+    states = torch.empty((b, nc, h, 2, p, n) if bf16 else (0,),
+                         dtype=torch.bfloat16, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), fin.data_ptr(), b, s, h, p, g, n,
-            chunk, int(x.dtype == torch.bfloat16), stream)
+            Cm.data_ptr(), y.data_ptr(), fin.data_ptr(), cb.data_ptr(),
+            states.data_ptr(), b, s, h, p, g, n, chunk, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"SSD scan kernel launch failed: CUDA error {err} "
                            f"({lib.repro_ssd_error_string(err).decode()})")

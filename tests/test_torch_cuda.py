@@ -22,7 +22,9 @@ Tolerances (atol, rtol), those of chip_smoke.py:
 * SSD scan: f32 1e-4 x mean|out| and 1e-5 (the plain f32 chunked scan is
   3.6e-5 from a float64 one at full width, where mean|y| is 3.1: 1.2e-5 of
   the mean); bf16 y 1e-3 x mean|out| and 2**-7 (one bf16 rounding of the
-  same f32 value). The final state is f32 either way.
+  same f32 value; the bf16 kernel's hi + lo products, emulated on the CPU,
+  stay within it on every case of tests/ssd_scan_cases.py). The final
+  state is f32 either way.
 * RG-LRU scan: 2e-5 x mean|out| and 1e-5 (the kernel chains 8 segments;
   emulated in f32 on the CPU that is 3.8e-6 from the sequential scan at
   S=1024, W=4096, where mean|h| is 2.5).
@@ -38,6 +40,7 @@ import numpy as np  # noqa: E402
 
 from decode_attention_cases import CASES, SERVING, serving_case  # noqa: E402
 from flash_attention_cases import CARD_CASES, card_inputs  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -46,6 +49,7 @@ from policy_score_cases import (  # noqa: E402
     FUSED_ARGS, KINDS, PREBUILT_ARGS, make_case, prebuilt_columns)
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+import ssd_scan_cases  # noqa: E402
 
 TOL = {"f32": (2e-5, 2e-5), "bf16": (2e-4, 2 ** -7)}
 TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -115,6 +119,54 @@ def test_decode_attention_kernel_matches_plain(cuda_device, dtype, case):
                                rtol=rtol)
 
 
+def _decode_case(name, dtype, device):
+    b, t, h, kh, d, splits, kv_block, lengths = (
+        CASES[name] if name in CASES else serving_case(name))
+    rng = np.random.default_rng(t + h)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape) * 0.3).to(
+        device, TORCH[dtype])
+        for shape in [(b, h, d), (b, t, kh, d), (b, t, kh, d)])
+    lens = (rng.integers(1, t + 1, b) if lengths is None
+            else np.array(lengths))
+    return q, k, v, torch.from_numpy(lens).to(device, torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,case", [("bf16", "d128"), ("bf16", "d256"),
+                                        ("bf16", "g64"), ("bf16", "g48_d256"),
+                                        ("f32", "edges")])
+def test_decode_attention_is_one_launch(cuda_device, dtype, case):
+    """One kernel on the card a call: the splits combine in their cluster,
+    with no second kernel and no scratch to clear."""
+    q, k, v, lens = _decode_case(case, dtype, cuda_device)
+    ops.decode_attention(q, k, v, lens)              # built and warm
+    names = _build.graph_kernels(lambda: ops.decode_attention(q, k, v, lens))
+    assert len(names) == 1 and "decode_" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d128", "d256"])
+def test_decode_attention_graph_replays_the_same_output(cuda_device, case):
+    """A CUDA graph of one call, replayed twice, gives the eager call's
+    output both times: no state is left on the card between calls."""
+    q, k, v, lens = _decode_case(case, "bf16", cuda_device)
+    eager = ops.decode_attention(q, k, v, lens)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attention(q, k, v, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, lens)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, eager) and torch.equal(out, eager)
+
+
 @pytest.mark.cuda
 def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros(2, 4, 32, device=cuda_device)
@@ -156,26 +208,22 @@ def _close_scaled(got, want, frac, rtol):
 SSD_TOL = {"f32": (1e-4, 1e-5), "bf16": (1e-3, 2 ** -7)}
 
 
+def _ssd_inputs(case, dtype, device, large_decay=False):
+    x, dt, A, Bm, Cm = ssd_scan_cases.inputs(*case, large_decay=large_decay)
+    return (torch.from_numpy(x).to(device, TORCH[dtype]),
+            torch.from_numpy(dt).float().to(device),
+            torch.from_numpy(A).float().to(device),
+            torch.from_numpy(Bm).to(device, TORCH[dtype]),
+            torch.from_numpy(Cm).to(device, TORCH[dtype]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
-    (1, 64, 2, 16, 1, 16, 16),            # tests/test_kernels.py:69-73
-    (2, 128, 4, 32, 2, 16, 32),
-    (1, 256, 8, 16, 1, 32, 64),
-    (1, 256, 80, 64, 1, 128, 256),        # mamba2-2.7b at full width
-    (1, 1024, 80, 64, 1, 128, 256),
-])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", ssd_scan_cases.CASES)
 def test_ssd_scan_kernel_matches_plain(cuda_device, dtype, b, s, h, p, g, n,
                                        chunk):
-    rng = np.random.default_rng(s + h)
-    x = torch.from_numpy(rng.normal(size=(b, s, h, p))).to(cuda_device,
-                                                           TORCH[dtype])
-    dt = torch.from_numpy(np.abs(rng.normal(size=(b, s, h))) * 0.1
-                          + 0.01).float().to(cuda_device)
-    A = torch.from_numpy(-np.abs(rng.normal(size=h)) - 0.1).float().to(
-        cuda_device)
-    Bm, Cm = (torch.from_numpy(rng.normal(size=(b, s, g, n))).to(
-        cuda_device, TORCH[dtype]) for _ in range(2))
+    x, dt, A, Bm, Cm = _ssd_inputs((b, s, h, p, g, n, chunk), dtype,
+                                   cuda_device)
     before = ssd.ssd_scan_cuda.launches
     y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
@@ -185,6 +233,32 @@ def test_ssd_scan_kernel_matches_plain(cuda_device, dtype, b, s, h, p, g, n,
     yw, finw = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     _close_scaled(y, yw, *SSD_TOL[dtype])
     _close_scaled(fin, finw, *SSD_TOL["f32"])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_large_decay_at_full_width(cuda_device):
+    """mamba2-2.7b's width over two chunks with |dt*A| summing far past 88:
+    the bf16 route's weights exponentiate only where i >= j."""
+    case = ssd_scan_cases.LARGE_DECAY
+    x, dt, A, Bm, Cm = _ssd_inputs(case, "bf16", cuda_device, True)
+    y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=case[-1])
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(fin).all()
+    yw, finw = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=case[-1])
+    _close_scaled(y, yw, *SSD_TOL["bf16"])
+    _close_scaled(fin, finw, *SSD_TOL["f32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernels", [("bf16", ssd.BF16_KERNELS),
+                                           ("f32", 1)])
+def test_ssd_scan_kernels_per_call(cuda_device, dtype, kernels):
+    case = ssd_scan_cases.CASES[3]                   # a serving bucket
+    x, dt, A, Bm, Cm = _ssd_inputs(case, dtype, cuda_device)
+    ops.ssd_scan(x, dt, A, Bm, Cm, chunk=case[-1])
+    names = _build.graph_kernels(
+        lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=case[-1]))
+    assert len(names) == kernels, names
 
 
 @pytest.mark.cuda
@@ -240,6 +314,10 @@ def test_scan_kernels_reject_what_they_do_not_take(cuda_device):
         ssd.ssd_scan_cuda(x, dt, A, bm, bm, chunk=16)
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd.ssd_scan_cuda(x, dt, A, bm[..., :16], bm[..., :16], chunk=48)
+    xb = torch.zeros(1, 64, 2, 12, device=cuda_device, dtype=torch.bfloat16)
+    bb = torch.zeros(1, 64, 1, 16, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ssd.ssd_scan_cuda(xb, dt, A, bb, bb, chunk=16)
     a = torch.zeros(1, 8, 4, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="f32"):
         rg.rglru_scan_cuda(a, a)

@@ -173,14 +173,20 @@ def test_shapes_and_devices_are_checked():
 
 
 def test_kernel_splits_cover_the_cache():
+    """The splits of one (batch row, kv head) are one cluster: a power of
+    two, at most the cluster the card can co-schedule, each split holding
+    keys."""
     h100 = 2 * 132                         # two blocks per SM, 132 SMs
     for b, kh, t in [(4, 8, 1152), (4, 1, 1152), (1, 1, 100), (64, 8, 4096),
                      (2, 2, 32)]:
-        n, split_len = da.kernel_splits(b, kh, t, h100)
-        assert split_len % da.KEY_TILE == 0
-        assert (n - 1) * split_len < t <= n * split_len
-    assert da.kernel_splits(4, 8, 1152, h100) == (9, 128)
-    assert da.kernel_splits(4, 1, 1152, h100) == (36, 32)
+        for cap in (16, 8, 2):
+            n, split_len = da.kernel_splits(b, kh, t, h100, cap)
+            assert n & (n - 1) == 0 and 1 <= n <= cap
+            assert (n - 1) * split_len < t <= n * split_len
+    assert da.kernel_splits(4, 8, 1152, h100) == (8, 144)
+    assert da.kernel_splits(4, 1, 1152, h100) == (16, 72)
+    assert da.kernel_splits(4, 1, 1152, h100, 8) == (8, 144)
+    assert da.kernel_splits(64, 8, 4096, h100) == (1, 4096)
 
 
 # ---------------------------------------------------------------------------
@@ -265,3 +271,128 @@ def test_real_hybrid_local_cache_matches_attend_and_pallas():
     _real_cache_parity("recurrentgemma-9b", trg.n_super(cfg),
                        {"tokens": torch.from_numpy(toks)}, 64,
                        cfg.local_window)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's tensor-core route (G > 8), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _mma_rounding(q, k, v, lengths, n_splits, split_len, split_p=True):
+    """K4's route for bf16 groups of more than 8, rounded where it rounds:
+    S = q . k^T of the bf16 values in f32 (exact products), scaled after;
+    f32 online softmax over 32-key tiles of each split, keys past the
+    split's end at -inf, past the length at -1e30, tiles at and past a
+    row's length skipped unless the length is 0; P . V with p handed over
+    as bf16 hi + lo (``split_p``) or as bf16 alone, sums in f32, l over the
+    unrounded p; the splits combined by their global max; the output
+    rounded once to bf16."""
+    b, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qr = q.float().reshape(b, kh, g, d)
+    kr, vr = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # (B,KH,T,D)
+    lens = lengths.long()
+    parts = []
+    for s in range(n_splits):
+        s0, s1 = s * split_len, min((s + 1) * split_len, t)
+        end = torch.where(lens > 0, lens.clamp(max=s1), torch.tensor(s1))
+        m = torch.full((b, kh, g, 1), da.NEG_INF)
+        l = torch.zeros(b, kh, g, 1)
+        acc = torch.zeros(b, kh, g, d)
+        for k0 in range(s0, s1, da.KEY_TILE):
+            kp = torch.arange(k0, k0 + da.KEY_TILE)
+            kt = torch.zeros(b, kh, da.KEY_TILE, d)
+            vt = torch.zeros_like(kt)
+            n = min(k0 + da.KEY_TILE, s1) - k0
+            kt[:, :, :n], vt[:, :, :n] = kr[:, :, k0:k0 + n], vr[:, :, k0:k0 + n]
+            sc = (qr @ kt.transpose(-1, -2)) * d ** -0.5
+            sc = torch.where(kp >= lens[:, None, None, None], da.NEG_INF, sc)
+            sc = torch.where(kp >= s1, float("-inf"), sc)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            p = torch.exp(sc - m_new)
+            alpha = torch.exp(m - m_new)
+            p_hi = p.bfloat16().float()
+            pv = p_hi @ vt
+            if split_p:
+                pv = pv + (p - p_hi).bfloat16().float() @ vt
+            on = (k0 < end)[:, None, None, None]
+            l = torch.where(on, l * alpha + p.sum(-1, keepdim=True), l)
+            acc = torch.where(on, acc * alpha + pv, acc)
+            m = torch.where(on, m_new, m)
+        parts.append((m, l, acc))
+    m_g = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - m_g) for m, _, _ in parts]
+    l_g = sum(l * wi for (_, l, _), wi in zip(parts, w))
+    acc_g = sum(a * wi for (_, _, a), wi in zip(parts, w))
+    return (acc_g / l_g.clamp_min(1e-30)).reshape(b, h, d).bfloat16()
+
+
+MMA_CASES = [c for c in CASES
+             if CASES[c][2] // CASES[c][3] >= da.MMA_MIN_GROUP]
+
+
+def _of_card_limit(got, want):
+    atol, rtol = TOL["bf16"]
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def _mma_case(name):
+    b, t, h, kh, d, splits, kv_block, lengths = CASES[name]
+    (jq, q), (jk, k), (jv, v), (jl, lens) = _inputs(
+        t + h, b, t, h, kh, d, lengths, "bf16")
+    # the split the card takes: two blocks per SM of 132, clusters of <= 16
+    n, split_len = da.kernel_splits(b, kh, t, 2 * 132, da.MAX_SPLITS)
+    return (q, k, v, lens, n, split_len, splits, kv_block), (jq, jk, jv, jl)
+
+
+def test_tensor_core_cases_exist():
+    assert {"g12", "g16", "g16_d256", "g24", "g64",
+            "g48_d256"} <= set(MMA_CASES)
+
+
+@pytest.mark.parametrize("name", MMA_CASES)
+def test_mma_rounding_matches_plain_pallas_and_oracle(name):
+    """With p split, the tensor-core route lands within the card's bf16
+    tolerance of the plain version (0.04-0.28 of it on these cases), of
+    the Pallas kernel (interpret mode) and of the oracle on the same bf16
+    values."""
+    (q, k, v, lens, n, split_len, splits, kv_block), j = _mma_case(name)
+    got = _mma_rounding(q, k, v, lens, n, split_len)
+    assert torch.isfinite(got.float()).all()
+    want = da.decode_attention_plain(q, k, v, lens, splits=splits,
+                                     kv_block=kv_block)
+    assert _of_card_limit(got, want) <= 0.5
+    _close(got, jops.decode_attention(*j, splits=splits, kv_block=kv_block),
+           TOL["bf16"])
+    _close(got, jref.decode_attention_ref(*j), TOL["bf16"])
+
+
+def _serving_d256(scale):
+    """recurrentgemma-9b's local cache (B=4, T=1152, G=16, D=256) at its
+    ragged check lengths, 0 among them, normal inputs of ``scale``."""
+    from decode_attention_cases import SERVING, SERVING_LENGTHS
+    b, t, h, kh, d = SERVING["d256"]
+    rng = np.random.default_rng(int(10 * scale))
+    q, k, v = (torch.from_numpy(rng.normal(size=shape) * scale).bfloat16()
+               for shape in [(b, h, d), (b, t, kh, d), (b, t, kh, d)])
+    lens = torch.tensor(SERVING_LENGTHS["d256"], dtype=torch.int32)
+    n, split_len = da.kernel_splits(b, kh, t, 2 * 132, da.MAX_SPLITS)
+    return (q, k, v, lens, n, split_len), da.decode_attention_plain(
+        q, k, v, lens)
+
+
+@pytest.mark.parametrize("scale", [0.3, 1.0, 3.0])
+def test_mma_rounding_at_the_serving_cache(scale):
+    """With p split: 0.0006-0.36 of the card's limit at scales 3, 0.3, 1."""
+    args, want = _serving_d256(scale)
+    assert _of_card_limit(_mma_rounding(*args), want) <= 0.5
+
+
+def test_p_rounded_once_breaks_the_card_tolerance():
+    """Why p is split: rounded once to bf16 it lands 3.6x the card's limit
+    from the plain version at the serving cache with inputs of scale 3
+    (0.38-0.98x at scales 0.3 and 1, 0.55-0.83x on the cases above)."""
+    args, want = _serving_d256(3.0)
+    assert _of_card_limit(_mma_rounding(*args, split_p=False), want) > 1.0

@@ -41,7 +41,8 @@ Phases, each printing its numbers on lines of its own:
      K4 or K5 may spill;
   3. hold every kernel against its plain PyTorch version on the cases of
      tests/test_kernels.py and at the serving paths' shapes, each tolerance
-     printed beside the output's mean |value|; K3 on the cases of
+     printed beside the output's mean |value|; K6 also at the serving
+     buckets S = 16, 64, 256 and 512 and at S = 1, 5 and 100; K3 on the cases of
      ``tests/flash_attention_cases.py`` and at every prefill bucket of both
      paths; K5 on the cases of ``tests/ssd_scan_cases.py`` (f32 and bf16)
      and its large-decay case at full width; K1 and K2 bit-equal on the
@@ -58,12 +59,14 @@ Phases, each printing its numbers on lines of its own:
      plain version, its bound on the card and, where one PyTorch call
      computes the same function, that call (SDPA for K3: a yardstick the
      port never calls), K3 and SDPA also by device time inside a CUDA
-     graph; K5 also at the serving buckets S=256, 512 and 768, by device
-     time in a CUDA graph, with its kernels a call; K4 at both serving
-     caches with lengths = T beside
+     graph; K5 and K6 also at the serving buckets S=256, 512 and 768, by
+     device time in a CUDA graph, with their kernels a call; K4 at both
+     serving caches with lengths = T beside
      its plain version, ``layers.attend`` (what decode runs) and SDPA with a
      boolean length mask; time the admission decision as the path makes
-     it, host-to-device copies included;
+     it (K1 on its pinned staging block), under each backend, at F = 1,
+     5, 10, 64, 128 and 256 functions over the five platforms, and K1's
+     staged route alone;
   5. admission: every policy picks the same platforms under the numpy
      backend, the torch backend and torch with the kernel, on
      tests/test_admission_fastpath.py's randomized platform states; then
@@ -125,9 +128,10 @@ TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-4, 2 ** -7)}
 # one at full width, where m is 3.1 (1.2e-5 of m), so f32 takes 1e-4 * m and
 # rtol 1e-5; bf16 y takes 1e-3 * m and rtol 2**-7 (one bf16 rounding of the
 # same f32 value); the final state is f32 in both. RG-LRU scan (f32): the
-# kernel chains 8 segments of the sequence; emulated in f32 that lies 3.8e-6
-# from the sequential scan at S=1024, W=4096, where m is 2.5 (1.5e-6 of m):
-# 2e-5 * m and rtol 1e-5.
+# kernel chains the steps of a block's walk and the 8 warp segments of each
+# step; emulated in f32 (tests/test_torch_rglru_scan.py) that lies 5.7e-6
+# from the sequential scan at S=1024, W=4096, where m is 2.5 (2.3e-6 of m),
+# and within 0-0.07 of this limit at S=1-5000: 2e-5 * m and rtol 1e-5.
 SCALED_TOL = {"ssd_f32": (1e-4, 1e-5), "ssd_bf16": (1e-3, 2 ** -7),
               "rglru": (2e-5, 1e-5)}
 # qwen3-0.6b's prefill buckets (B=1, H=16, KH=8, D=128), and 16
@@ -139,6 +143,9 @@ HYBRID_WINDOW = 2048
 RGLRU_CASES = [                   # tests/test_kernels.py:96-100, + full width
     # (b, s, w)
     (1, 64, 32), (2, 128, 64), (1, 256, 128), (1, 64, 4096), (1, 1024, 4096),
+    # the serving buckets (serving/engine.py) and short sequences
+    (1, 16, 4096), (1, 256, 4096), (1, 512, 4096), (1, 1, 4096),
+    (1, 5, 4096), (1, 100, 4096),
 ]
 # K4 against layers.attend, per element: |K4 - attend| <= 2**-7 * (|attend|
 # + sum_j p_j |v_j|). attend rounds its probabilities to bf16 before the
@@ -154,6 +161,8 @@ ATTEND_LIMIT = 2 ** -7
 POLICY_SHAPES = [(1, 5), (5, 5), (10, 5), (37, 129), (4096, 1024)]
 POLICY_TIMED = [(1, 5), (5, 5), (4096, 1024)]
 POLICY_WEIGHTS = (0.0, 0.1, 0.5)
+# the admission decision's functions for the backend crossover (P = 5)
+DECISION_FNS = (1, 5, 10, 64, 128, 256)
 STREAM_ARRIVALS = 100_000
 
 
@@ -615,17 +624,39 @@ def time_decode():
 
 
 def time_rglru():
-    """K6 at recurrentgemma-9b's full width, S=1024."""
+    """K6 at recurrentgemma-9b's full width, at the serving prefill buckets
+    S = 256, 512, 768 and at S = 1024: by CUDA events over back-to-back
+    calls (host launch cost included) and by device time a call inside a
+    CUDA graph; its plain version; the kernels a call (from a CUDA-graph
+    capture); and, as a yardstick of the rate an elementwise pass reaches
+    on this card, the device time of ``torch.add(a, b, out=h)``, which
+    moves the same bytes (reads a and b, writes h) but computes no
+    recurrence. Returns the rows by S."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import rglru_scan as rg
-    a, bb = _rglru_inputs(gen(5), 1, 1024, 4096)
-    bound_ms, bound_by = rglru_bound(1, 1024, 4096)
-    row = dict(ms=event_ms(lambda: rg.rglru_scan_cuda(a, bb), 50),
-               plain_ms=event_ms(lambda: rg.rglru_scan_plain(a, bb), 3, 1),
-               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    say("time", kernel="rglru_scan", dtype="f32", shape=[1, 1024, 4096],
-        library="none: no single PyTorch call computes a linear recurrence",
-        **row)
-    return row
+    rows = {}
+    for s in (256, 512, 768, 1024):
+        a, bb = _rglru_inputs(gen(5), 1, s, 4096)
+        out = torch.empty_like(a)
+        bound_ms, bound_by = rglru_bound(1, s, 4096)
+        row = dict(ms=event_ms(lambda: rg.rglru_scan_cuda(a, bb), 50),
+                   plain_ms=event_ms(lambda: rg.rglru_scan_plain(a, bb), 3,
+                                     1),
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        row["graph_device_ms"] = graph_ms(lambda: rg.rglru_scan_cuda(a, bb))
+        row["same_bytes_add_graph_device_ms"] = graph_ms(
+            lambda: torch.add(a, bb, out=out))
+        row["kernels_per_call"] = _build.graph_kernels(
+            lambda: rg.rglru_scan_cuda(a, bb))
+        if len(row["kernels_per_call"]) != 1:
+            raise AssertionError(f"K6 ran {row['kernels_per_call']}")
+        say("time", kernel="rglru_scan", dtype="f32", shape=[1, s, 4096],
+            tiles=dict(zip(("tile", "stages"),
+                           rg.kernel_tiles(s))),
+            library="none: no single PyTorch call computes a linear "
+                    "recurrence", **row)
+        rows[s] = row
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -765,56 +796,91 @@ def _paper_fns():
             for k, f in fn_mod.paper_functions(device=DEV).items()}
 
 
-def time_decision(iters: int = 2000):
-    """The admission decision as the path makes it, F=5 paper functions
-    over the P=5 paper platforms: a fresh snapshot and one
-    ``fn_decisions`` per call, host clock (each call ends by copying the
-    choice back to the host), under each backend; and the eleven
-    host-to-device copies of K1's inputs alone."""
-    import time as _time
+def _decision_fleet(n_fns: int):
+    """The admission decision's state for ``n_fns`` functions over the five
+    paper platforms (``_fleet``'s randomized state): the paper's five
+    functions, repeated under new names past five."""
     from repro_torch.core import profiles
+    base = list(_paper_fns().values())
+    fns = {}
+    for i in range(n_fns):
+        spec = base[i % len(base)]
+        name = spec.name if i < len(base) else f"{spec.name}-{i}"
+        fns[name] = spec.replace(name=name)
+    cp = _fleet(gen(8), list(profiles.PAPER_PLATFORMS), fns)
+    return cp, list(fns.values())
+
+
+def _host_ms(fn, iters: int) -> float:
+    """Host ms a call of ``fn``, which ends with its result on the host."""
+    import time as _time
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = _time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (_time.perf_counter() - t0) / iters * 1e3
+
+
+def time_decision():
+    """The admission decision as the path makes it, F functions over the
+    P=5 paper platforms, for each F of ``DECISION_FNS``: a fresh snapshot
+    and one ``fn_decisions`` per call, host clock (each call ends with the
+    choice on the host), under each backend (the median of three turns),
+    the choices identical; torch with K1 runs on K1's pinned staging
+    block. At F=5 also K1's staged
+    route alone (host arrays in, choice out). Returns the F=5 row and the
+    table."""
     from repro_torch.core import scheduler as sched
     from repro_torch.kernels import policy_score as ps
-    fns = _paper_fns()
-    cp = _fleet(gen(8), list(profiles.PAPER_PLATFORMS), fns)
-    pol = sched.SLOCompositePolicy(cp.perf, cp.placement)
-    specs = list(fns.values())
-    plats = cp.alive_platforms()
-
-    def decide():
-        return pol.fn_decisions(specs, sched.as_snapshot(plats), n=64)
-
-    def host_ms(fn):
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-        t0 = _time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (_time.perf_counter() - t0) / iters * 1e3
-
-    row, picks = {}, {}
+    table = []
     sched.set_score_device(DEV)
     try:
-        for label, backend, kernel in (("numpy", "numpy", False),
-                                       ("torch", "torch", False),
-                                       ("torch_k1", "torch", True)):
-            sched.set_score_backend(backend)
-            ps.set_use_pallas(kernel)
-            row[f"{label}_ms"] = host_ms(decide)
-            picks[label] = [a.tolist() for a in decide()]
-        host = pol._fused_inputs(specs, sched.as_snapshot(plats))
-        row["h2d_11_inputs_ms"] = host_ms(lambda: sched._on_device(*host))
+        for n_fns in DECISION_FNS:
+            cp, specs = _decision_fleet(n_fns)
+            pol = sched.SLOCompositePolicy(cp.perf, cp.placement)
+            plats = cp.alive_platforms()
+
+            def decide():
+                return pol.fn_decisions(specs, sched.as_snapshot(plats))
+
+            iters = 2000 if n_fns == 5 else max(100, 2000 // n_fns)
+            row, picks = dict(F=len(specs), P=len(plats), iters=iters), {}
+            times = {}
+            for _ in range(3):              # the backends in turn, 3 times
+                for label, backend, kernel in (("numpy", "numpy", False),
+                                               ("torch", "torch", False),
+                                               ("torch_k1", "torch", True)):
+                    sched.set_score_backend(backend)
+                    ps.set_use_pallas(kernel)
+                    times.setdefault(label, []).append(_host_ms(decide,
+                                                                iters))
+                    picks[label] = [a.tolist() for a in decide()]
+            for label, ms in times.items():
+                row[f"{label}_ms"] = float(np.median(ms))
+            if not picks["numpy"] == picks["torch"] == picks["torch_k1"]:
+                raise AssertionError(f"decision backends disagree at F="
+                                     f"{n_fns}: {picks}")
+            if n_fns == 5:
+                host = pol._fused_inputs(specs, sched.as_snapshot(plats))
+                w = pol.energy_weight
+                row["k1_staged_route_ms"] = _host_ms(
+                    lambda: ps.fused_composite_decide_staged(
+                        *host, w, device=DEV), iters)
+            say("time", what="admission decision",
+                clock="host, fresh snapshot per decision", **row)
+            table.append(row)
     finally:
         sched.set_score_backend("auto")
         ps.set_use_pallas(False)
         sched.set_score_device(None)
-    say("time", what="admission decision", shape=[len(specs), len(plats)],
-        iters=iters, clock="host, fresh snapshot per decision", **row)
-    if not picks["numpy"] == picks["torch"] == picks["torch_k1"]:
-        raise AssertionError(f"decision backends disagree: {picks}")
-    return row
+    beats = [r["F"] for r in table if r["torch_k1_ms"] < r["numpy_ms"]]
+    say("time", what="admission decision crossover",
+        functions=[r["F"] for r in table],
+        torch_k1_beats_numpy_at=beats)
+    return next(r for r in table if r["F"] == 5), table
 
 
 POLICY_FACTORIES = {
@@ -1174,7 +1240,7 @@ def main() -> int:
     t_fa, t_ssd, t_rg = time_flash(), time_ssd(), time_rglru()
     t_da = time_decode()
     t_ps = time_policy_score()
-    time_decision()
+    t_dec, t_cross = time_decision()
     policy_parity()
     launches = {"admission": admission_stream()}
     cache_launches = 0
@@ -1214,14 +1280,25 @@ def main() -> int:
                               bound_ms=t_ssd[s]["bound_ms"],
                               plain_ms=t_ssd[s]["plain_ms"])
                       for s in (256, 512, 768)}),
-        entry("rglru_scan", "rglru_scan",
-              "src/repro/kernels/rglru_scan.py:48",
-              launches["recurrentgemma-9b"]["rglru_scan"], err_rg, t_rg),
-        # at the admission stream's decision shape, F=1 x P=5
-        entry("fused_composite_decide", "policy_score",
-              "src/repro/kernels/policy_score.py:351",
-              launches["admission"]["fused_composite_decide"], err_ps,
-              t_ps[("fused_composite_decide", 1, 5)]),
+        # at S=1024; the serving buckets 256/512/768 beside it
+        dict(entry("rglru_scan", "rglru_scan",
+                   "src/repro/kernels/rglru_scan.py:48",
+                   launches["recurrentgemma-9b"]["rglru_scan"], err_rg,
+                   t_rg[1024]),
+             graph_device_ms=t_rg[1024]["graph_device_ms"],
+             kernels_per_call=len(t_rg[1024]["kernels_per_call"]),
+             buckets={s: dict(ms=t_rg[s]["ms"],
+                              graph_device_ms=t_rg[s]["graph_device_ms"],
+                              bound_ms=t_rg[s]["bound_ms"],
+                              plain_ms=t_rg[s]["plain_ms"])
+                      for s in (256, 512, 768)}),
+        # at the admission stream's decision shape, F=1 x P=5; the whole
+        # decision's host ms (K1 on its staging block) at F=5 and by F
+        dict(entry("fused_composite_decide", "policy_score",
+                   "src/repro/kernels/policy_score.py:351",
+                   launches["admission"]["fused_composite_decide"], err_ps,
+                   t_ps[("fused_composite_decide", 1, 5)]),
+             host_ms_per_decision=t_dec, decision_by_functions=t_cross),
         # no path of either package reaches K2: its launches are 0
         entry("composite_decide", "policy_score",
               "src/repro/kernels/policy_score.py:266",

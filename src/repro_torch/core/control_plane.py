@@ -254,7 +254,7 @@ class FDNControlPlane:
             # fused fn_decisions over the same snapshot), plus one
             # provenance row stamped onto the invocation
             snap = as_snapshot(self.alive_platforms())
-            res = self.policy.fn_decisions([inv.fn], snap, n=1)
+            res = self.policy.fn_decisions([inv.fn], snap)
             if res is None:                 # stateful: never journaled
                 target = self.policy.choose(inv, snap)
             else:
@@ -377,8 +377,7 @@ class FDNControlPlane:
             fast = [(fn, idxs, ov) for fn, idxs in groups]
         else:
             snap = as_snapshot(alive)
-            res = self.policy.fn_decisions([g[0] for g in groups], snap,
-                                           n=n)
+            res = self.policy.fn_decisions([g[0] for g in groups], snap)
             if res is None:                 # stateful policy: full matrix
                 targets = self.policy.choose_batch(invs, snap)
             else:
@@ -558,7 +557,7 @@ class FDNControlPlane:
             tmap: List[Optional[TargetPlatform]] = [ov] * len(present)
         else:
             snap = as_snapshot(self.alive_platforms())
-            res = self.policy.fn_decisions(pres_specs, snap, n=batch.n)
+            res = self.policy.fn_decisions(pres_specs, snap)
             if res is None:             # stateful policy: needs real rows
                 invs = batch.to_invocations()
                 for inv in invs:        # bookkeeping already folded above

@@ -28,12 +28,15 @@ function.  The cascade runs on one of two backends:
   * ``torch`` — the torch cascades of ``repro_torch.kernels.policy_score``
     on the score device (float32, as the JAX package's jitted cascades),
     with the composite policy's decision through the hand-written CUDA
-    kernel K1 when ``policy_score.set_use_pallas(True)``.
+    kernel K1 on its pinned staging block when
+    ``policy_score.set_use_pallas(True)``.
 
 ``set_score_backend("numpy"|"torch"|"auto")`` selects it; ``auto`` (the
-default, or the ``FDN_SCORE_BACKEND`` variable) uses torch for batches of
-at least ``TORCH_DECIDE_MIN`` invocations and numpy below that (the JAX
-package's threshold, not measured for the port).  ``set_score_device`` picks
+default, or the ``FDN_SCORE_BACKEND`` variable) uses torch for decisions
+over at least ``TORCH_DECIDE_MIN`` distinct functions and numpy below that
+(measured on the H100 for the kernel route; see its comment).  A decision
+costs by its functions, not by the invocations that carry them.
+``set_score_device`` picks
 where the torch backend computes: the CUDA card unless the caller asks for
 the CPU.  There is no silent degrade: the policy-score module is imported
 directly, and a torch decision without a card raises.  Both backends pick
@@ -61,11 +64,17 @@ from repro_torch.core.types import FunctionSpec, Invocation
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import policy_score as ps
 
-# Minimum batch size at which the "auto" backend switches to the torch
-# cascades. 64 is the JAX package's JAX_DECIDE_MIN, kept as it is; the
-# crossover has not been measured for the port (on the H100 the numpy
-# backend was the faster one at every decision size measured so far).
-TORCH_DECIDE_MIN = 64
+# Fewest distinct functions in a decision at which the "auto" backend
+# switches to the torch cascades. chip_smoke.py times one decision of F
+# functions over the five paper platforms under each backend (NVIDIA H100
+# 80GB HBM3, 700 W; host ms, median of three turns); numpy / torch with K1
+# on its staged block, three runs on three hosts: F=1 0.051 / 0.086,
+# 0.071 / 0.119, 0.047 / 0.081; F=5 0.204 / 0.220, 0.145 / 0.156, 0.138 /
+# 0.168; F=10 0.373 / 0.375, 0.278 / 0.258, 0.194 / 0.204; F=64 1.02 /
+# 1.31, 1.69 / 0.95, 0.85 / 0.78; F=128 (one run) 1.87 / 1.64; F=256 4.77
+# / 4.23, 3.45 / 3.06, 3.21 / 3.15 (plain torch never ahead). K1 led in
+# every run only at F=256.
+TORCH_DECIDE_MIN = 256
 
 _BACKENDS = ("numpy", "torch", "auto")
 _SCORE_BACKEND = os.environ.get("FDN_SCORE_BACKEND", "auto")
@@ -96,13 +105,13 @@ def get_score_device() -> DeviceLike:
     return _SCORE_DEVICE
 
 
-def _use_torch_backend(n: int) -> bool:
+def _use_torch_backend(n_fns: int) -> bool:
     if _SCORE_BACKEND not in _BACKENDS:
         raise ValueError(f"unknown score backend {_SCORE_BACKEND!r} "
                          f"(FDN_SCORE_BACKEND); want one of {_BACKENDS}")
     if _SCORE_BACKEND == "numpy":
         return False
-    return not (_SCORE_BACKEND == "auto" and n < TORCH_DECIDE_MIN)
+    return not (_SCORE_BACKEND == "auto" and n_fns < TORCH_DECIDE_MIN)
 
 
 def _on_device(*arrays) -> List[torch.Tensor]:
@@ -110,6 +119,12 @@ def _on_device(*arrays) -> List[torch.Tensor]:
     one host-to-device copy each."""
     dev = resolve(_SCORE_DEVICE)
     return [ps.as_tensor(a, dev) for a in arrays]
+
+
+def _on_host(res: Tuple[torch.Tensor, torch.Tensor]
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """A torch decision's (choice, ok) as host arrays."""
+    return res[0].cpu().numpy(), res[1].cpu().numpy()
 
 
 class FnView:
@@ -404,24 +419,25 @@ class Policy:
 
     def _torch_decide(self, fns: Sequence[FunctionSpec],
                       snap: PlatformSnapshot
-                      ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+                      ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         """Torch-cascade decision (repro_torch.kernels.policy_score) on the
-        score device, or None when this policy has no such variant."""
+        score device, (choice, ok) brought to the host; None when this
+        policy has no such variant."""
         return None
 
     def fn_decisions(self, fns: Sequence[FunctionSpec],
-                     snap: PlatformSnapshot, n: Optional[int] = None
+                     snap: PlatformSnapshot
                      ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         """Fused decision per distinct function: (platform index, any-
-        feasible) arrays of shape (F,).  ``n`` is the size of the batch
-        being routed (backend selection under "auto").  Returns None for
-        stateful policies — callers fall back to the full score matrix.
+        feasible) arrays of shape (F,), on the backend that "auto" picks
+        for F functions.  Returns None for stateful policies — callers
+        fall back to the full score matrix.
         """
-        if _use_torch_backend(len(fns) if n is None else n):
+        if _use_torch_backend(len(fns)):
             res = self._torch_decide(fns, snap)
             if res is not None:
                 self.torch_decisions += 1
-                return res[0].cpu().numpy(), res[1].cpu().numpy()
+                return res
         rows = self.fn_cost_matrix(fns, snap)
         if rows is None:
             return None
@@ -460,7 +476,7 @@ class Policy:
         if not invs or snap.n == 0:
             return [None] * len(invs)
         groups = group_by_fn(invs)
-        res = self.fn_decisions([g[0] for g in groups], snap, n=len(invs))
+        res = self.fn_decisions([g[0] for g in groups], snap)
         plats = snap.platforms
         if res is None:
             costs = self.score(invs, snap)
@@ -499,7 +515,8 @@ class PerformanceRankedPolicy(Policy):
 
     def _torch_decide(self, fns, snap):
         m = snap.fn_matrix(fns, self.perf)
-        return ps.perf_ranked_decide(*_on_device(m["exec_s"], m["alive"]))
+        return _on_host(ps.perf_ranked_decide(
+            *_on_device(m["exec_s"], m["alive"])))
 
     @staticmethod
     def cascade(feats, params):
@@ -529,8 +546,8 @@ class UtilizationAwarePolicy(Policy):
 
     def _torch_decide(self, fns, snap):
         m = snap.fn_matrix(fns, self.perf)
-        return ps.utilization_decide(*_on_device(m["exec_s"], m["alive"],
-                                                 self._unloaded(snap)))
+        return _on_host(ps.utilization_decide(
+            *_on_device(m["exec_s"], m["alive"], self._unloaded(snap))))
 
     CASCADE_PARAMS = {"cpu_threshold": 0.9, "mem_threshold": 0.9}
 
@@ -632,8 +649,8 @@ class DataLocalityPolicy(Policy):
 
     def _torch_decide(self, fns, snap):
         m = snap.fn_matrix(fns, self.perf, self.placement)
-        return ps.locality_decide(*_on_device(m["exec_s"], m["data_s"],
-                                              m["alive"]))
+        return _on_host(ps.locality_decide(
+            *_on_device(m["exec_s"], m["data_s"], m["alive"])))
 
     @staticmethod
     def cascade(feats, params):
@@ -664,9 +681,9 @@ class WarmAwarePolicy(Policy):
 
     def _torch_decide(self, fns, snap):
         m = snap.fn_matrix(fns, self.perf, self.placement)
-        return ps.warm_decide(*_on_device(m["exec_s"], m["data_s"],
-                                          m["warm_free"], snap.cold_start_s,
-                                          m["alive"]))
+        return _on_host(ps.warm_decide(
+            *_on_device(m["exec_s"], m["data_s"], m["warm_free"],
+                        snap.cold_start_s, m["alive"])))
 
     @staticmethod
     def cascade(feats, params):
@@ -698,8 +715,9 @@ class EnergyAwarePolicy(Policy):
 
     def _torch_decide(self, fns, snap):
         m = snap.fn_matrix(fns, self.perf, p90=True, energy=True)
-        return ps.energy_decide(*_on_device(m["energy_j"], m["p90_s"],
-                                            _slo_vector(fns), m["alive"]))
+        return _on_host(ps.energy_decide(
+            *_on_device(m["energy_j"], m["p90_s"], _slo_vector(fns),
+                        m["alive"])))
 
     @staticmethod
     def cascade(feats, params):
@@ -767,14 +785,18 @@ class SLOCompositePolicy(Policy):
         """ONE fused step from raw estimator state: snapshot prediction
         columns (EWMA/P² gates, power model), filter cascade and argmin
         on the score device — the host never materializes exec/P90/energy
-        matrices on this path. With ``set_use_pallas(True)`` the whole
-        step is one launch of the CUDA kernel K1 on the card; its eleven
-        host arrays are copied to the device first."""
-        args = (*_on_device(*self._fused_inputs(fns, snap)),
-                self.energy_weight)
-        if ps.use_pallas():
-            return ps.fused_composite_decide_pallas(*args)
-        return ps.fused_composite_decide(*args)
+        matrices on this path. With ``set_use_pallas(True)`` on the card
+        the whole step is one launch of the CUDA kernel K1 on its staging
+        block (``fused_composite_decide_staged``): the eleven host arrays
+        are written into one pinned block that the card reads in place, and
+        one sync returns the result."""
+        host = self._fused_inputs(fns, snap)
+        dev = resolve(_SCORE_DEVICE)
+        if ps.use_pallas() and dev.type == "cuda":
+            return ps.fused_composite_decide_staged(
+                *host, self.energy_weight, device=dev)
+        return _on_host(ps.fused_composite_decide(*_on_device(*host),
+                                                  self.energy_weight))
 
     CASCADE_PARAMS = {"cpu_threshold": 0.9, "mem_threshold": 0.95,
                       "energy_weight": 0.1}

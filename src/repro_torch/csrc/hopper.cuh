@@ -112,6 +112,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 3-D tensor map into shared memory, as tma_load_4d
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // orders this thread's plain shared-memory stores before later reads by the
 // async proxy (wgmma, TMA)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -353,6 +365,29 @@ inline cudaError_t make_map_4d(CUtensorMap* map, const void* base,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// A contiguous f32 tensor of 3 dimensions (dims[0] innermost, a multiple of
+// 4 elements, so that every row starts on 16 bytes) read in boxes of
+// box[0..2] elements (box[0] * 4 a multiple of 16 bytes), unswizzled: a box
+// lands in shared memory as box[1] x box[2] rows of box[0] floats. Elements
+// past the tensor's edges are filled with zeros. Errors as make_map_4d.
+inline cudaError_t make_map_f32_3d(CUtensorMap* map, const void* base,
+                                   const uint64_t (&dims)[3],
+                                   const uint32_t (&box)[3]) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t gdim[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t gstride[2] = {dims[0] * 4, dims[0] * dims[1] * 4};
+  const cuuint32_t gbox[3] = {box[0], box[1], box[2]};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(base), gdim, gstride, gbox, estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess

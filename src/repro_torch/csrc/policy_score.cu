@@ -32,8 +32,12 @@
 //
 // What bounds it on the H100. On the FDN's own path the grid is tiny (F <=
 // 10 functions x P = 5 platforms a decision): a launch costs a few
-// microseconds and the wrapper's caller copies the inputs from the host
-// first, so launch latency and host->device copies bound it, not the card.
+// microseconds, so launch latency and the way the inputs reach the card
+// bound it, not the card. The admission path stages K1's eleven inputs and
+// two outputs in one pinned host block mapped into the card's address
+// space (`repro_host_block_alloc`): the kernel reads its inputs over PCIe
+// and writes choice and ok back into the block, with no copy and no device
+// allocation, and the host syncs once.
 // At a registry-scale shape (F = 4096, P = 1024) it is bound by bytes: K1
 // reads 25 bytes a cell (six 4-byte columns and the alive byte), 105 MB,
 // about 31 us at 3.35 TB/s; it does 6 flops a cell.
@@ -241,6 +245,30 @@ int repro_composite_decide(const void* exec, const void* data,
                       static_cast<const float*>(slo)};
   return launch(cells, F, P, choice, ok, stream);
 }
+
+// K1's staging block: `bytes` of pinned host memory, mapped into the
+// address space of every device; *host is its host address and *dev the
+// address a kernel on the current device reads it by. Returns a CUDA error
+// (0 on success), with both addresses null on failure.
+int repro_host_block_alloc(size_t bytes, void** host, void** dev) {
+  *host = nullptr;
+  *dev = nullptr;
+  cudaError_t err =
+      cudaHostAlloc(host, bytes, cudaHostAllocMapped | cudaHostAllocPortable);
+  if (err != cudaSuccess) {
+    *host = nullptr;
+    return (int)err;
+  }
+  err = cudaHostGetDevicePointer(dev, *host, 0);
+  if (err != cudaSuccess) {
+    cudaFreeHost(*host);
+    *host = nullptr;
+    *dev = nullptr;
+  }
+  return (int)err;
+}
+
+int repro_host_block_free(void* host) { return (int)cudaFreeHost(host); }
 
 const char* repro_policy_score_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -35,6 +35,13 @@ it):
   K2 ``composite_decide_pallas`` — the same cascade and argmin over
      prebuilt columns; replaces ``composite_decide_pallas`` there.
 
+On the admission path K1 takes a third route, ``fused_composite_decide_
+staged``: host arrays in, numpy (choice, ok) out. Its eleven inputs and two
+outputs share one pinned host block mapped into the card's address space
+(``staging_layout`` places them, ``pack_inputs`` writes them), so a
+decision makes no host-to-device copy and no device allocation, launches
+K1 once on the block and syncs once.
+
 The wrappers keep the JAX package's names and dispatch on the tensors'
 device: a CUDA tensor launches the kernel (``*_cuda``, which counts its
 launches and raises when a launch fails), a CPU tensor runs the kernel's
@@ -51,7 +58,9 @@ and ok False.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from types import MappingProxyType
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -267,6 +276,11 @@ def _library() -> ctypes.CDLL:
         lib.repro_composite_decide.argtypes = (
             [ptr] * 7 + [i32, i32, ptr, ptr, ptr])
         lib.repro_composite_decide.restype = i32
+        lib.repro_host_block_alloc.argtypes = [
+            ctypes.c_size_t, ctypes.POINTER(ptr), ctypes.POINTER(ptr)]
+        lib.repro_host_block_alloc.restype = i32
+        lib.repro_host_block_free.argtypes = [ptr]
+        lib.repro_host_block_free.restype = i32
         lib.repro_policy_score_error_string.argtypes = [i32]
         lib.repro_policy_score_error_string.restype = ctypes.c_char_p
     return lib
@@ -404,3 +418,184 @@ def fused_composite_decide_pallas(ewma_v, ewma_n, analytic_s, resp_h2,
         return fused_composite_decide(*args)
     raise ValueError(f"fused_composite_decide_pallas runs on cuda or cpu "
                      f"tensors; got {analytic_s.device}")
+
+
+# ---------------------------------------------------------------------------
+# K1's staged route: one pinned block in, one sync out
+# ---------------------------------------------------------------------------
+
+# K1's arguments before the energy weight, then its outputs: name, the
+# width the decision computes in, and the shape, of (F, P) cells, of (P,)
+# platforms or of (F,) functions
+STAGED_ARRAYS = tuple((name, np.dtype(dtype), kind) for name, dtype, kind in (
+    ("ewma_v", np.float32, "fp"), ("ewma_n", np.int32, "fp"),
+    ("analytic_s", np.float32, "fp"), ("resp_h2", np.float32, "fp"),
+    ("resp_n", np.int32, "fp"), ("data_s", np.float32, "fp"),
+    ("nodes", np.float32, "p"), ("loaded_w", np.float32, "p"),
+    ("alive", np.bool_, "fp"), ("unloaded", np.bool_, "p"),
+    ("slo_s", np.float32, "f"),
+    ("choice", np.int32, "f"), ("ok", np.bool_, "f")))
+STAGED_INPUTS = 11
+STAGE_ALIGN = 16     # bytes: every array starts on a 16-byte boundary
+MIN_BLOCK = 4096     # bytes of the smallest staging block
+
+
+@functools.lru_cache(maxsize=256)
+def staging_layout(f: int, p: int
+                   ) -> Tuple[Mapping[str, Tuple[int, np.dtype, tuple]], int]:
+    """Where each of K1's eleven inputs and two outputs lies in the
+    staging block for an (F, P) decision: ``{name: (byte offset, dtype,
+    shape)}`` (read-only) in ``STAGED_ARRAYS``' order, each array on a
+    ``STAGE_ALIGN``-byte boundary, and the bytes the block needs."""
+    shapes = {"fp": ((f, p), f * p), "p": ((p,), p), "f": ((f,), f)}
+    layout, off = {}, 0
+    for name, dtype, kind in STAGED_ARRAYS:
+        shape, count = shapes[kind]
+        layout[name] = (off, dtype, shape)
+        off += -(-count * dtype.itemsize // STAGE_ALIGN) * STAGE_ALIGN
+    return MappingProxyType(layout), off
+
+
+def block_bytes(needed: int) -> int:
+    """The size a staging block grows to: the next power of two of the
+    bytes a decision needs, at least ``MIN_BLOCK``."""
+    return max(MIN_BLOCK, 1 << max(needed - 1, 0).bit_length())
+
+
+def stage_views(buf: np.ndarray, f: int, p: int) -> Dict[str, np.ndarray]:
+    """numpy views of a uint8 block ``buf`` at ``staging_layout(f, p)``."""
+    layout, nbytes = staging_layout(f, p)
+    if buf.dtype != np.uint8 or buf.ndim != 1 or buf.size < nbytes:
+        raise ValueError(f"a staging block of {nbytes} uint8 bytes is "
+                         f"needed; got {buf.dtype} {buf.shape}")
+    return {name: np.ndarray(shape, dtype, buf, off)
+            for name, (off, dtype, shape) in layout.items()}
+
+
+def _copy_in(views: Dict[str, np.ndarray], arrays) -> None:
+    """Write K1's eleven host inputs into their views, at the decision's
+    compute width, with the cast ``as_tensor`` makes (round to nearest
+    f32, int32, bool)."""
+    if len(arrays) != STAGED_INPUTS:
+        raise ValueError(f"K1 takes {STAGED_INPUTS} inputs; got "
+                         f"{len(arrays)}")
+    for (name, _, _), x in zip(STAGED_ARRAYS, arrays):
+        view = views[name]
+        if np.shape(x) != view.shape:
+            raise ValueError(f"{name} is {np.shape(x)}; want {view.shape}")
+        np.copyto(view, x, casting="unsafe")
+
+
+def pack_inputs(buf: np.ndarray, *arrays) -> Dict[str, np.ndarray]:
+    """Write K1's eleven host inputs (``fused_composite_decide``'s order)
+    into the block ``buf`` at ``staging_layout`` and return the views of
+    all thirteen arrays (``_copy_in``)."""
+    if len(arrays) != STAGED_INPUTS:
+        raise ValueError(f"K1 takes {STAGED_INPUTS} inputs; got "
+                         f"{len(arrays)}")
+    views = stage_views(buf, *np.shape(arrays[2]))
+    _copy_in(views, arrays)
+    return views
+
+
+class _StagingBlock:
+    """The process-wide pinned host block of the staged route, mapped into
+    the card's address space. It grows (to ``block_bytes``) and never
+    shrinks; every decision syncs before it returns, so no kernel reads
+    the block when it is rewritten or freed. Decisions are made from one
+    thread."""
+
+    def __init__(self):
+        self.host = None
+        self.dev_ptr = 0
+        self.buf = np.zeros(0, np.uint8)
+        self.device = None
+        self._views: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
+
+    def views(self, f: int, p: int) -> Dict[str, np.ndarray]:
+        """The block's views at ``staging_layout(f, p)``, made once."""
+        got = self._views.get((f, p))
+        if got is None:
+            got = self._views[(f, p)] = stage_views(self.buf, f, p)
+        return got
+
+    def ensure(self, nbytes: int, device: torch.device) -> None:
+        if self.buf.size >= nbytes and self.device == device:
+            return
+        lib = _library()
+        size = block_bytes(nbytes)
+        self.release()
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        with torch.cuda.device(device):
+            err = lib.repro_host_block_alloc(size, ctypes.byref(host),
+                                             ctypes.byref(dev))
+        if err != 0:
+            msg = lib.repro_policy_score_error_string(err).decode()
+            raise RuntimeError(f"K1's staging block ({size} bytes of pinned "
+                               f"host memory mapped to {device}) could not "
+                               f"be allocated: CUDA error {err} ({msg})")
+        self.host, self.dev_ptr, self.device = host.value, dev.value, device
+        self.buf = np.ctypeslib.as_array(
+            (ctypes.c_uint8 * size).from_address(self.host))
+
+    def release(self) -> None:
+        if self.host is None:
+            return
+        lib = _library()
+        err = lib.repro_host_block_free(self.host)
+        self.host, self.dev_ptr, self.device = None, 0, None
+        self.buf = np.zeros(0, np.uint8)
+        self._views.clear()
+        if err != 0:
+            msg = lib.repro_policy_score_error_string(err).decode()
+            raise RuntimeError(f"freeing K1's staging block failed: CUDA "
+                               f"error {err} ({msg})")
+
+
+_STAGING = _StagingBlock()
+
+
+def fused_composite_decide_staged(ewma_v, ewma_n, analytic_s, resp_h2,
+                                  resp_n, data_s, nodes, loaded_w, alive,
+                                  unloaded, slo_s, energy_weight, device
+                                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """K1 on the card ``device`` from host arrays (the contract of
+    ``fused_composite_decide``): the inputs are written into the staging
+    block, K1 reads them there and writes (choice, ok) back, and one sync
+    of the current stream precedes the numpy copies returned. No
+    host-to-device copy and no device allocation; the launch counts on
+    ``fused_composite_decide_cuda.launches``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the staged K1 route runs on a CUDA card; got "
+                         f"{device}")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    arrays = (ewma_v, ewma_n, analytic_s, resp_h2, resp_n, data_s, nodes,
+              loaded_w, alive, unloaded, slo_s)
+    if np.ndim(analytic_s) != 2:
+        raise ValueError(f"the staged K1 route takes (F,P) columns; got "
+                         f"{np.shape(analytic_s)}")
+    f, p = np.shape(analytic_s)
+    if p == 0:
+        raise ValueError("fused_composite_decide_staged: no platform "
+                         "columns")
+    if f == 0:
+        return np.zeros(0, np.int32), np.zeros(0, bool)
+    layout, nbytes = staging_layout(f, p)
+    _STAGING.ensure(nbytes, device)
+    views = _STAGING.views(f, p)
+    _copy_in(views, arrays)
+    base = _STAGING.dev_ptr
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        err = lib.repro_fused_composite_decide(
+            *(base + layout[name][0] for name, _, _ in
+              STAGED_ARRAYS[:STAGED_INPUTS]),
+            weight_f32(energy_weight), f, p, base + layout["choice"][0],
+            base + layout["ok"][0], stream.cuda_stream)
+        _raise_on(lib, err, "fused_composite_decide (K1, staged)")
+        fused_composite_decide_cuda.launches += 1
+        stream.synchronize()
+    return views["choice"].copy(), views["ok"].copy()

@@ -14,16 +14,43 @@ the card it is what the kernel is held against.
 
 ``rglru_scan_cuda`` launches the kernel. It takes CUDA tensors only, counts
 its launches in ``rglru_scan_cuda.launches``, and raises when the launch
-fails; it never falls back to the plain version.
+fails; it never falls back to the plain version. The kernel loads its tiles
+by TMA, which needs every row of a and b on 16 bytes: it takes widths that
+are multiples of 4 and 16-byte aligned data, and raises ``ValueError``
+otherwise.
+
+``kernel_tiles`` is the kernel's sizing rule: how many rows a block
+holds a step, and how many steps its ring of tiles keeps in flight.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rglru_ref
+
+
+WARPS = 8           # sequence segments a tile, one per warp
+MAX_TILE = 256      # rows a tile the kernel takes (a TMA box's limit)
+MAX_STAGES = 4      # tiles in flight a block the kernel takes
+
+
+def kernel_tiles(s: int) -> Tuple[int, int]:
+    """(tile, stages) for a sequence of ``s`` rows: each block walks the
+    sequence alone in steps of ``tile`` rows (a multiple of ``WARPS``),
+    with a ring of ``stages`` tiles in flight, and carries the state from
+    one step to the next. 256 rows a step with 3 in flight up to S = 1024
+    (the longest serving bucket), 128 rows with 2 in flight beyond; a
+    shorter sequence takes one tile of its own length. Picked on the H100
+    among tiles of 32-256 rows and rings of 1-4 at S = 16-4096."""
+    if s < 1:
+        raise ValueError(f"the RG-LRU scan takes S >= 1; got {s}")
+    tile, stages = (MAX_TILE, 3) if s <= 1024 else (128, 2)
+    tile = min(tile, -(-s // WARPS) * WARPS)
+    return tile, min(stages, -(-s // tile))
 
 
 def _check_shapes(a: torch.Tensor, b: torch.Tensor):
@@ -42,7 +69,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("rglru_scan")
     fn = lib.repro_rglru_scan_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.repro_rglru_error_string.argtypes = [ctypes.c_int]
@@ -51,8 +78,8 @@ def _library() -> ctypes.CDLL:
 
 
 def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch the Hopper kernel on PyTorch's current stream. It picks its
-    own tiles (32 columns x 8 sequence segments a block)."""
+    """Launch the Hopper kernel on PyTorch's current stream: one block per
+    strip of 32 columns of a batch row, in steps of ``kernel_tiles``."""
     _check_shapes(a, b)
     if not (a.is_cuda and b.device == a.device):
         raise ValueError(f"the RG-LRU scan kernel takes CUDA tensors on one "
@@ -63,12 +90,18 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("the RG-LRU scan kernel takes contiguous tensors")
     bs, s, w = a.shape
+    if w % 4 or a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"the RG-LRU scan kernel loads rows by TMA: it "
+                         f"takes widths that are multiples of 4 and 16-byte "
+                         f"aligned data; got W={w}")
+    tile, stages = kernel_tiles(s)
     h = torch.empty_like(a)
     lib = _library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.repro_rglru_scan_fwd(a.data_ptr(), b.data_ptr(),
-                                       h.data_ptr(), bs, s, w, stream)
+                                       h.data_ptr(), bs, s, w, tile, stages,
+                                       stream)
     if err != 0:
         raise RuntimeError(f"RG-LRU scan kernel launch failed: CUDA error "
                            f"{err} "

@@ -18,10 +18,11 @@ def csrc_copy(tmp_path, monkeypatch):
 
 
 def test_headers_are_the_ones_a_source_includes(csrc_copy):
-    for name in ("flash_attention", "decode_attention", "ssd_scan"):
+    for name in ("flash_attention", "decode_attention", "ssd_scan",
+                 "rglru_scan"):
         assert _build.headers(csrc_copy / f"{name}.cu") == [
             csrc_copy / "hopper.cuh"]
-    assert _build.headers(csrc_copy / "rglru_scan.cu") == []
+    assert _build.headers(csrc_copy / "policy_score.cu") == []
 
 
 def test_headers_follow_includes_of_includes(csrc_copy):

@@ -25,9 +25,10 @@ Tolerances (atol, rtol), those of chip_smoke.py:
   same f32 value; the bf16 kernel's hi + lo products, emulated on the CPU,
   stay within it on every case of tests/ssd_scan_cases.py). The final
   state is f32 either way.
-* RG-LRU scan: 2e-5 x mean|out| and 1e-5 (the kernel chains 8 segments;
-  emulated in f32 on the CPU that is 3.8e-6 from the sequential scan at
-  S=1024, W=4096, where mean|h| is 2.5).
+* RG-LRU scan: 2e-5 x mean|out| and 1e-5 (the kernel chains the steps of
+  a block's walk and the warp segments of each step; emulated in f32 on
+  the CPU, tests/test_torch_rglru_scan.py, that stays within 0-0.07 of this
+  limit at S=1-5000, where mean|h| is about 2.5).
 * policy-score kernels (K1, K2): bit-equal choice and ok. The kernels round
   every multiply and add apart, in the plain version's association, so
   nothing in the arithmetic differs.
@@ -287,6 +288,16 @@ def test_ssd_scan_kernel_large_decay_stays_finite(cuda_device):
     (1, 256, 128, "test"),
     (1, 64, 4096, "model"),               # recurrentgemma-9b's width
     (1, 1024, 4096, "model"),
+    (1, 16, 4096, "model"),               # serving buckets
+    (1, 256, 4096, "model"),
+    (1, 512, 4096, "model"),
+    (1, 300, 4096, "model"),              # a partial second tile
+    (1, 768, 4096, "model"),              # three tiles in flight
+    (1, 1, 32, "test"),                   # one row, one block
+    (2, 5, 64, "test"),
+    (1, 100, 4096, "model"),              # one tile of 104 rows
+    (2, 100, 36, "test"),                 # a partial strip of columns
+    (1, 5000, 64, "model"),               # forty steps of 128 rows
 ])
 def test_rglru_scan_kernel_matches_plain(cuda_device, b, s, w, gate):
     rng = np.random.default_rng(s + w)
@@ -305,6 +316,15 @@ def test_rglru_scan_kernel_matches_plain(cuda_device, b, s, w, gate):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [16, 1024, 2048])
+def test_rglru_scan_is_one_kernel(cuda_device, s):
+    a = torch.rand(1, s, 4096, device=cuda_device)
+    bb = torch.randn(1, s, 4096, device=cuda_device)
+    names = _build.graph_kernels(lambda: ops.rglru_scan(a, bb))
+    assert len(names) == 1 and "rglru" in names[0], names
+
+
+@pytest.mark.cuda
 def test_scan_kernels_reject_what_they_do_not_take(cuda_device):
     x = torch.zeros(1, 64, 2, 16, device=cuda_device)
     dt = torch.zeros(1, 64, 2, device=cuda_device)
@@ -320,6 +340,14 @@ def test_scan_kernels_reject_what_they_do_not_take(cuda_device):
         ssd.ssd_scan_cuda(xb, dt, A, bb, bb, chunk=16)
     a = torch.zeros(1, 8, 4, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="f32"):
+        rg.rglru_scan_cuda(a, a)
+    a = torch.zeros(1, 8, 6, device=cuda_device)   # rows not on 16 bytes
+    with pytest.raises(ValueError, match="multiples of 4"):
+        rg.rglru_scan_cuda(a, a)
+    flat = torch.zeros(1 + 64, device=cuda_device)
+    a = flat[1:].view(1, 8, 8)                     # 4 bytes past 16
+    assert a.is_contiguous() and a.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="aligned"):
         rg.rglru_scan_cuda(a, a)
 
 
@@ -350,6 +378,66 @@ def test_policy_score_kernels_match_plain(cuda_device, f, p, kind):
         want2 = ps.composite_decide(*cols, w)
         assert torch.equal(got2[0], want2[0])
         assert torch.equal(got2[1], want2[1])
+
+
+def _staged_agrees(c, device):
+    """K1's staged route on case ``c``: one launch, numpy results
+    bit-equal to the kernel on device tensors and to the plain version."""
+    w = c["energy_weight"]
+    host = [c[k] for k in FUSED_ARGS]
+    before = ps.fused_composite_decide_cuda.launches
+    choice, ok = ps.fused_composite_decide_staged(*host, w, device=device)
+    assert ps.fused_composite_decide_cuda.launches == before + 1
+    assert isinstance(choice, np.ndarray) and choice.dtype == np.int32
+    assert ok.dtype == np.bool_
+    want = ps.fused_composite_decide_cuda(
+        *[ps.as_tensor(x, device) for x in host], w)
+    plain = ps.fused_composite_decide(*[ps.as_tensor(x, "cpu")
+                                        for x in host], w)
+    for got, k, p in zip((choice, ok), want, plain):
+        np.testing.assert_array_equal(got, k.cpu().numpy())
+        np.testing.assert_array_equal(got, p.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("f,p", [(1, 5), (5, 5), (10, 5), (37, 129),
+                                 (4096, 1024)])
+def test_staged_k1_matches_the_kernel(cuda_device, f, p, kind):
+    """K1's staged route (host arrays in its pinned block, read in place
+    by the card) against K1 on device tensors and the plain version,
+    bit-equal, NaN and +-inf included, energy weights 0, 0.1 and 0.5."""
+    for i, w in enumerate((0.0, 0.1, 0.5)):
+        _staged_agrees(make_case(97 * f + p + i, f, p, kind, w), cuda_device)
+
+
+@pytest.mark.cuda
+def test_staged_k1_block_grows_and_keeps_deciding(cuda_device):
+    ps._STAGING.release()
+    _staged_agrees(make_case(1, 1, 5, "random"), cuda_device)
+    small = ps._STAGING.buf.size
+    assert small == ps.MIN_BLOCK
+    _staged_agrees(make_case(2, 4096, 1024, "random"), cuda_device)
+    big = ps._STAGING.buf.size
+    assert big == ps.block_bytes(ps.staging_layout(4096, 1024)[1]) > small
+    _staged_agrees(make_case(3, 1, 5, "nonfinite"), cuda_device)
+    assert ps._STAGING.buf.size == big
+
+
+@pytest.mark.cuda
+def test_staged_k1_allocates_no_device_memory(cuda_device):
+    c = make_case(4, 5, 5, "random")
+    host = [c[k] for k in FUSED_ARGS]
+    first = ps.fused_composite_decide_staged(*host, 0.1, device=cuda_device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    launches = ps.fused_composite_decide_cuda.launches
+    for _ in range(100):
+        got = ps.fused_composite_decide_staged(*host, 0.1,
+                                               device=cuda_device)
+        assert all((g == f).all() for g, f in zip(got, first))
+    assert torch.cuda.memory_allocated(cuda_device) == before
+    assert ps.fused_composite_decide_cuda.launches == launches + 100
 
 
 @pytest.mark.cuda

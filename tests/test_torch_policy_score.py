@@ -194,3 +194,75 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     cols = tt(*[m[k] for k in PREBUILT_ARGS])
     with pytest.raises(ValueError, match="CUDA"):
         tps.composite_decide_cuda(*cols)
+
+
+# K1's staged route: the layout of its pinned block and the packing into
+# it. The block itself (pinned host memory mapped into the card) and the
+# launch on it are held on the card by tests/test_torch_cuda.py.
+
+@pytest.mark.parametrize("f,p", SHAPES + [(4096, 1024), (3, 1), (1, 129)])
+def test_staging_layout_is_aligned_and_disjoint(f, p):
+    layout, nbytes = tps.staging_layout(f, p)
+    assert [n for n, _, _ in tps.STAGED_ARRAYS] == list(layout)
+    assert list(layout)[:tps.STAGED_INPUTS] == list(FUSED_ARGS)
+    end = 0
+    for name, (off, dtype, shape) in layout.items():
+        assert off % tps.STAGE_ALIGN == 0 and off >= end
+        end = off + int(np.prod(shape)) * dtype.itemsize
+    assert end <= nbytes < end + tps.STAGE_ALIGN
+    dims = {"fp": (f, p), "p": (p,), "f": (f,)}
+    for name, dtype, kind in tps.STAGED_ARRAYS:
+        assert layout[name][1:] == (np.dtype(dtype), dims[kind])
+
+
+def test_staging_block_grows_to_the_next_power_of_two():
+    assert tps.block_bytes(1) == tps.MIN_BLOCK
+    sizes = [tps.staging_layout(f, p)[1] for f, p in
+             [(1, 5), (10, 5), (37, 129), (4096, 1024)]]
+    assert sizes == sorted(sizes)
+    for n in sizes + [tps.MIN_BLOCK, tps.MIN_BLOCK + 1, 1 << 20]:
+        got = tps.block_bytes(n)
+        assert got >= n and got & (got - 1) == 0
+        assert got == tps.MIN_BLOCK or got < 2 * n
+    assert tps.block_bytes(sizes[-1]) == 1 << 27        # 4096 x 1024
+
+
+@pytest.mark.parametrize("f,p,kind", list(_cases()))
+def test_packed_views_decide_as_the_reference(f, p, kind):
+    """The eleven host inputs packed into an ordinary numpy block at
+    ``staging_layout``: the plain K1 on the views (float32) equals the JAX
+    package's fused decision (float32) and the NumPy host cascade
+    (float64), choice and ok exact; the views hold ``as_tensor``'s casts."""
+    for i, w in enumerate(WEIGHTS):
+        c = make_case(7000 * f + p + i, f, p, kind, w)
+        w = c["energy_weight"]
+        fused = [c[k] for k in FUSED_ARGS]
+        nbytes = tps.staging_layout(f, p)[1]
+        buf = np.full(tps.block_bytes(nbytes), 0xAB, np.uint8)
+        views = tps.pack_inputs(buf, *fused)
+        assert set(views) == {n for n, _, _ in tps.STAGED_ARRAYS}
+        packed = [torch.from_numpy(views[k]) for k in FUSED_ARGS]
+        for got, want in zip(packed, tt(*fused)):
+            assert got.dtype == want.dtype and torch.equal(
+                got.nan_to_num(), want.nan_to_num())
+        res = tps.fused_composite_decide(*packed, w)
+        same(res, jps.fused_composite_decide(*fused, w))
+        same(res, host_composite(c))
+
+
+def test_packing_refuses_what_the_layout_does_not_hold():
+    c = make_case(1, 4, 5, "random")
+    fused = [c[k] for k in FUSED_ARGS]
+    buf = np.zeros(tps.block_bytes(tps.staging_layout(4, 5)[1]), np.uint8)
+    bad = list(fused)
+    bad[0] = fused[0][0]                       # (P,) would broadcast
+    with pytest.raises(ValueError, match="ewma_v"):
+        tps.pack_inputs(buf, *bad)
+    with pytest.raises(ValueError, match="11 inputs"):
+        tps.pack_inputs(buf, *fused[:10])
+    with pytest.raises(ValueError, match="staging block"):
+        tps.pack_inputs(buf[:64], *fused)
+    with pytest.raises(ValueError, match="CUDA"):
+        tps.fused_composite_decide_staged(*fused, 0.1, device="cpu")
+    assert tps._STAGING.host is None            # no block on the CPU
+    assert tps.fused_composite_decide_cuda.launches == 0

@@ -156,12 +156,15 @@ def test_auto_backend_switches_at_the_batch_threshold(specs):
     pol = tsched.SLOCompositePolicy(cp.perf, cp.placement)
     plats = list(cp.platforms.values())
     tsched.set_score_backend("auto")
-    small = [ttypes.Invocation(fn, 0.0)
-             for fn in invs[:tsched.TORCH_DECIDE_MIN - 1]]
+    # the threshold's number of distinct functions (by identity): copies
+    # of the scenario's mix; a decision counts functions, not invocations
+    mix = [invs[i % len(invs)].replace()
+           for i in range(tsched.TORCH_DECIDE_MIN)]
+    small = [ttypes.Invocation(fn, 0.0) for fn in mix[:-1]]
+    small += [ttypes.Invocation(mix[0], 0.0)] * tsched.TORCH_DECIDE_MIN
     pol.choose_batch(small, plats)
     assert pol.torch_decisions == 0
-    big = [ttypes.Invocation(fn, 0.0)
-           for fn in invs[:tsched.TORCH_DECIDE_MIN]]
+    big = [ttypes.Invocation(fn, 0.0) for fn in mix]
     pol.choose_batch(big, plats)
     assert pol.torch_decisions == 1
     with pytest.raises(ValueError, match="unknown score backend"):
@@ -180,3 +183,37 @@ def test_torch_backend_wants_the_card_by_default(specs):
     with pytest.raises(NoCudaDevice):
         pol.choose_batch([ttypes.Invocation(invs[0], 0.0)],
                          list(cp.platforms.values()))
+
+
+def test_k1_on_the_card_takes_the_staged_route(specs, monkeypatch):
+    """With the kernel switch on and the card as score device, the
+    composite decision hands its eleven host arrays to K1's staged route
+    and returns that route's numpy arrays as they are; the route itself
+    runs on the card (tests/test_torch_cuda.py), so here it is a stand-in
+    that runs the plain version."""
+    cp, invs = scenario("repro_torch", specs["repro_torch"], 2)
+    calls = []
+
+    def staged(*args, device):
+        calls.append((args, device))
+        got = tps.fused_composite_decide(
+            *[tps.as_tensor(a, "cpu") for a in args[:11]], args[11])
+        return got[0].numpy(), got[1].numpy()
+
+    monkeypatch.setattr(tps, "fused_composite_decide_staged", staged)
+    monkeypatch.setattr(tsched, "resolve", lambda d: torch.device("cuda"))
+    plats = list(cp.platforms.values())
+    batch = [ttypes.Invocation(fn, 0.0) for fn in invs]
+    tsched.set_score_backend("torch")
+    tps.set_use_pallas(True)
+    pol = tsched.SLOCompositePolicy(cp.perf, cp.placement)
+    got = pol.choose_batch(batch, plats)
+    assert len(calls) == 1 and pol.torch_decisions == 1
+    args, device = calls[0]
+    assert device == torch.device("cuda")
+    assert all(isinstance(a, np.ndarray) for a in args[:11])
+    assert args[11] == pol.energy_weight
+    tsched.set_score_backend("numpy")
+    want = pol.choose_batch(batch, plats)
+    assert [p.prof.name if p else None for p in got] == \
+        [p.prof.name if p else None for p in want]

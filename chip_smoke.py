@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA card: the FDN
-admission path, the serving paths and the split-K decode attention entry
-point.
+admission path, the Inspector's scenarios, the serving paths and the split-K
+decode attention entry point.
 
     python3 chip_smoke.py
 
@@ -12,6 +12,13 @@ The admission path runs ``examples/batch_scheduling.py``'s stream through
 by the SLO-composite policy, whose decision runs on the card through the
 policy-score kernel K1 (``src/repro_torch/csrc/policy_score.cu``, with K2 in
 the same source).
+
+The Inspector (``repro_torch.inspector``, with the function chains of
+``repro_torch.chains``) runs four registry scenarios at their registered
+sizes through ``repro_torch.launch.inspector_scenario``: smoke/tiny,
+paper/fig10-weighted, qos/burst-storm-drr and chains/etl-pipeline. Their
+decisions reach K1 on the control plane's columnar admission path and behind
+the QoS admission controller, which the admission stream does not take.
 
 Three models are served at full width through ``repro_torch.serving.engine``,
 one after another (each one's weights are freed before the next loads):
@@ -73,7 +80,14 @@ Phases, each printing its numbers on lines of its own:
      the 100,000-arrival stream three ways (numpy, torch, torch with K1)
      with identical outcomes, every kernel's launch count set to 0 just
      before the K1 run and read just after, and K1's launches equal to the
-     torch decisions;
+     torch decisions; then the Inspector's four scenarios three ways
+     (numpy, torch, torch with K1) with byte-identical reports, every
+     kernel's launch count set to 0 just before each run and read just
+     after (K1's equal to the K1 run's torch decisions, above 0 in every
+     scenario but paper/fig10-weighted, whose load balancer leaves the
+     policy nothing to decide: 0 there; every other kernel 0), each report
+     without drift against its golden in benchmarks/golden/
+     (``benchmarks/scenario_diff.diff_reports``);
   6. per model: serve 16 requests (prompts of 64-1000 tokens, 32 new tokens
      each) at full width, bf16, random weights from seed 0, batch 4,
      context 1024, with every kernel's launch count set to 0 just before
@@ -999,6 +1013,81 @@ def admission_stream() -> dict:
     return launches
 
 
+# The Inspector's registry scenarios whose goldens (benchmarks/golden/) turn
+# on no autoscale or observability layer, at their registered sizes, and
+# whether their K1 run must launch K1 (once a torch decision). Each decides
+# a few distinct functions at a time, far below TORCH_DECIDE_MIN, so the
+# torch runs set the backend to "torch", not "auto". paper/fig10-weighted's
+# gateway routes every invocation through its weighted load balancer, which
+# names the platform: the composite policy decides nothing there, and K1
+# must launch exactly 0 times.
+INSPECTOR_SCENARIOS = {"smoke/tiny": True, "paper/fig10-weighted": False,
+                       "qos/burst-storm-drr": True,
+                       "chains/etl-pipeline": True}
+
+
+def inspector() -> dict:
+    """Phase 5c. The Inspector's four golden scenarios three ways (numpy,
+    torch, torch with K1), through ``repro_torch.launch.inspector_scenario``:
+    byte-identical reports, every kernel's launch count set to 0 just before
+    each run and read just after (K1's equal to the K1 run's torch
+    decisions, every other count 0), and each report without drift against
+    its golden by ``benchmarks/scenario_diff.diff_reports``. Returns K1's
+    launches by scenario."""
+    from benchmarks.scenario_diff import diff_reports
+    from repro_torch.launch.inspector_scenario import run
+    k1_launches = {}
+    for name, decides in INSPECTOR_SCENARIOS.items():
+        reports = {}
+        for label, backend, kernel in (("numpy", "numpy", False),
+                                       ("torch", "torch", False),
+                                       ("torch_k1", "torch", True)):
+            kernels = wrappers()
+            torch.cuda.synchronize()
+            for fn in kernels.values():
+                fn.launches = 0
+            out = run(name, backend, kernel, DEV)
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            rep = out["report"]
+            t = rep.totals
+            n = out["torch_decisions"]
+            say("inspector", scenario=name, run=label, wall_s=out["wall_s"],
+                decisions=t["decisions"], torch_decisions=n,
+                host_ms_per_decision=out["wall_s"] * 1e3
+                / max(t["decisions"], 1),
+                completed=t["completed"], rejected=t["rejected"],
+                p90_s=t["p90_s"], cold_starts=t["cold_starts"],
+                chains_completed=t.get("chains_completed"),
+                launches=launches)
+            want = {k: 0 for k in launches}
+            if kernel:
+                want["fused_composite_decide"] = n
+                k1_launches[name] = launches["fused_composite_decide"]
+                if (n > 0) != decides:
+                    raise AssertionError(
+                        f"{name}: {n} torch decisions under torch+K1; "
+                        f"expected {'some' if decides else 'none'}")
+            if launches != want:
+                raise AssertionError(f"{name} under {label}: kernel "
+                                     f"launches {launches} != {want}")
+            reports[label] = rep.to_json()
+        for label in ("torch", "torch_k1"):
+            if reports[label] != reports["numpy"]:
+                raise AssertionError(f"{name}: the report under {label} "
+                                     f"differs from numpy's")
+        golden = json.loads((ROOT / "benchmarks" / "golden"
+                             / f"{name.replace('/', '_')}.json").read_text())
+        drift = diff_reports(json.loads(reports["numpy"]), golden)
+        say("inspector", scenario=name, identical=list(reports),
+            report_bytes=len(reports["numpy"]),
+            golden_drift=[str(d) for d in drift], ok=not drift)
+        if drift:
+            raise AssertionError(f"{name}: drift against its golden: "
+                                 f"{drift}")
+    return k1_launches
+
+
 # ---------------------------------------------------------------------------
 # Phases 6 and 7: serve each model; logits
 # ---------------------------------------------------------------------------
@@ -1243,6 +1332,7 @@ def main() -> int:
     t_dec, t_cross = time_decision()
     policy_parity()
     launches = {"admission": admission_stream()}
+    inspector_launches = inspector()
     cache_launches = 0
     for arch in MODELS:
         launches[arch], n = run_model(arch)
@@ -1298,7 +1388,8 @@ def main() -> int:
                    "src/repro/kernels/policy_score.py:351",
                    launches["admission"]["fused_composite_decide"], err_ps,
                    t_ps[("fused_composite_decide", 1, 5)]),
-             host_ms_per_decision=t_dec, decision_by_functions=t_cross),
+             host_ms_per_decision=t_dec, decision_by_functions=t_cross,
+             inspector_launches=inspector_launches),
         # no path of either package reaches K2: its launches are 0
         entry("composite_decide", "policy_score",
               "src/repro/kernels/policy_score.py:266",

@@ -652,8 +652,8 @@ class FDNControlPlane:
                                    self.clock.now(), n)
 
     # ------------------------------------- layers not yet in the port ---
-    # The autoscale, observability and chains layers of the JAX package
-    # are later slices of the port (ROADMAP.md, Queue 1). Until they land,
+    # The autoscale and observability layers of the JAX package are later
+    # slices of the port (ROADMAP.md, Queue 1). Until they land,
     # their attach points raise; the recorder / journal / telemetry hooks
     # above stay None and every tap keeps its one ``is None`` check.
     def attach_autoscaler(self, *args, **kwargs):
@@ -698,11 +698,12 @@ class FDNControlPlane:
 
     # ----------------------------------------------------------- chains ---
     def chain_executor(self, fns: Dict[str, FunctionSpec], **kw):
-        """Chain executor (the collaborative-execution layer): not ported
-        yet."""
-        raise NotImplementedError(
-            "chain_executor: the chains layer is not ported to repro_torch "
-            "yet (ROADMAP.md, Queue 1 item 7)")
+        """Factory for a chain executor bound to this control plane (the
+        collaborative-execution layer, repro_torch.chains): stage batches
+        flow through ``submit_batch``, intermediates land in this plane's
+        object stores, transfer accounting in this plane's metrics."""
+        from repro_torch.chains.executor import ChainExecutor
+        return ChainExecutor(self, fns, **kw)
 
     # --------------------------------------------------------------- run --
     def run_until(self, t: float):

@@ -50,6 +50,7 @@ identical platforms.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -103,6 +104,23 @@ def set_score_device(device: DeviceLike) -> None:
 
 def get_score_device() -> DeviceLike:
     return _SCORE_DEVICE
+
+
+@contextlib.contextmanager
+def score_settings(backend: str, device: DeviceLike, kernel: bool):
+    """The decision backend, the score device and the switch of the
+    composite decision's kernel K1 (``policy_score.set_use_pallas``) for
+    the block; the earlier settings are put back after it."""
+    saved = (_SCORE_BACKEND, _SCORE_DEVICE, ps.use_pallas())
+    set_score_backend(backend)
+    set_score_device(device)
+    ps.set_use_pallas(kernel)
+    try:
+        yield
+    finally:
+        set_score_backend(saved[0])
+        set_score_device(saved[1])
+        ps.set_use_pallas(saved[2])
 
 
 def _use_torch_backend(n_fns: int) -> bool:

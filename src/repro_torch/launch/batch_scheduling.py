@@ -12,8 +12,8 @@ composite-decision kernel (K1).
     PYTHONPATH=src python -m repro_torch.launch.batch_scheduling \\
         [--arrivals N] [--backend numpy|torch|auto] [--kernel] [--device D]
 
-``--backend`` picks the decision backend (``auto``: torch for bursts of at
-least 64 invocations, numpy below). ``--kernel`` routes the torch backend's
+``--backend`` picks the decision backend (``auto``: torch for decisions
+over at least ``TORCH_DECIDE_MIN`` distinct functions, numpy below). ``--kernel`` routes the torch backend's
 composite decision through the CUDA kernel K1. ``--device`` is where the
 torch backend and the function bodies live: the CUDA card unless ``cpu`` is
 asked for; without a card the run stops with an error naming it.
@@ -49,12 +49,7 @@ def run(arrivals: int = 100_000, backend: str = "auto",
     set for the run and restored after it. Returns the numbers printed by
     ``main``; ``sink`` and ``cp`` hold the run's sink and control plane."""
     dev = resolve(device)
-    saved = (sched.get_score_backend(), sched.get_score_device(),
-             ps.use_pallas())
-    sched.set_score_backend(backend)
-    sched.set_score_device(dev)
-    ps.set_use_pallas(kernel)
-    try:
+    with sched.score_settings(backend, dev, kernel):
         cp = FDNControlPlane()
         for prof in profiles.PAPER_PLATFORMS.values():
             cp.create_platform(prof)
@@ -76,10 +71,6 @@ def run(arrivals: int = 100_000, backend: str = "auto",
                      batch_window_s=BATCH_WINDOW_S, sink=sink)
         wall = time.perf_counter() - t0
         k1 = ps.fused_composite_decide_cuda.launches - k1
-    finally:
-        sched.set_score_backend(saved[0])
-        sched.set_score_device(saved[1])
-        ps.set_use_pallas(saved[2])
     return {"arrivals": int(times.size), "backend": backend,
             "kernel": kernel, "device": str(dev), "seed": seed,
             "wall_s": wall, "invocations_per_s": times.size / wall,

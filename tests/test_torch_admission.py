@@ -169,7 +169,8 @@ def test_unported_layers_raise():
             attach(object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cp.attach_autoscaler()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cp.chain_executor({})
+    # the chains layer is ported: its factory gives the port's executor
+    from repro_torch.chains.executor import ChainExecutor
+    assert isinstance(cp.chain_executor({}), ChainExecutor)
     assert cp.recorder is None and cp.journal is None
     assert cp.telemetry is None

@@ -456,3 +456,32 @@ def test_policy_score_kernels_reject_what_they_do_not_take(cuda_device):
     cols = [ps.as_tensor(m[k], cuda_device) for k in PREBUILT_ARGS]
     with pytest.raises(ValueError, match="exec_s"):
         ps.composite_decide_cuda(cols[0].t(), *cols[1:])
+
+
+@pytest.mark.cuda
+def test_inspector_scenario_three_ways_through_k1(cuda_device):
+    """smoke/tiny, a golden scenario of the Inspector, under the numpy
+    backend, the torch backend and torch with K1 on the card: byte-identical
+    reports, and K1 launched once per torch decision of the K1 run, no other
+    kernel at all."""
+    from repro_torch.launch.inspector_scenario import run
+    counted = (fa.flash_attention_cuda, da.decode_attention_cuda,
+               ssd.ssd_scan_cuda, rg.rglru_scan_cuda,
+               ps.fused_composite_decide_cuda, ps.composite_decide_cuda)
+    reports = {}
+    for label, backend, kernel in (("numpy", "numpy", False),
+                                   ("torch", "torch", False),
+                                   ("torch_k1", "torch", True)):
+        before = [fn.launches for fn in counted]
+        out = run("smoke/tiny", backend, kernel, cuda_device)
+        torch.cuda.synchronize()
+        launched = [fn.launches - b for fn, b in zip(counted, before)]
+        reports[label] = out["report"].to_json()
+        assert (out["torch_decisions"] > 0) == (backend == "torch")
+        if kernel:
+            assert out["k1_launches"] == out["torch_decisions"]
+            assert launched == [0, 0, 0, 0, out["torch_decisions"], 0]
+        else:
+            assert launched == [0] * len(counted)
+    assert reports["torch"] == reports["numpy"]
+    assert reports["torch_k1"] == reports["numpy"]

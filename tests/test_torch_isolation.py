@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax_or_repro():
     for name in ("kernels.flash_attention", "kernels.decode_attention",
                  "kernels.ssd_scan", "kernels.rglru_scan", "models.mamba2",
                  "models.rglru", "core.control_plane", "core.scheduler",
-                 "kernels.policy_score"):
+                 "kernels.policy_score", "chains.executor", "chains.planner",
+                 "inspector.scenario"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -78,6 +79,19 @@ def test_batch_scheduling_launcher_names_the_missing_card():
                 "sys.exit(batch_scheduling.main(['--arrivals', '10']))\n")
     assert proc.returncode != 0
     assert "no CUDA card" in proc.stderr
+
+
+@pytest.mark.parametrize("launcher,argv", [
+    ("inspector_scenario", "['smoke/tiny']"), ("chain_execution", "[]")])
+def test_inspector_launchers_name_the_missing_card(launcher, argv):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible here")
+    proc = _run("import sys\n"
+                f"from repro_torch.launch import {launcher}\n"
+                f"sys.exit({launcher}.main({argv}))\n")
+    assert proc.returncode == 2
+    assert "no CUDA card" in proc.stderr
+    assert not proc.stdout
 
 
 def test_kernel_module_imports_without_nvcc(tmp_path):

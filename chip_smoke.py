@@ -14,11 +14,18 @@ policy-score kernel K1 (``src/repro_torch/csrc/policy_score.cu``, with K2 in
 the same source).
 
 The Inspector (``repro_torch.inspector``, with the function chains of
-``repro_torch.chains``) runs four registry scenarios at their registered
-sizes through ``repro_torch.launch.inspector_scenario``: smoke/tiny,
-paper/fig10-weighted, qos/burst-storm-drr and chains/etl-pipeline. Their
-decisions reach K1 on the control plane's columnar admission path and behind
-the QoS admission controller, which the admission stream does not take.
+``repro_torch.chains``, the warm-pool controller of ``repro_torch.autoscale``
+and the flight recorder, telemetry and decision journal of
+``repro_torch.obs``) runs the seven registry scenarios that have a golden in
+benchmarks/golden/, and prov/smoke-tiny, at their registered sizes through
+``repro_torch.launch.inspector_scenario``: smoke/tiny, paper/fig10-weighted,
+qos/burst-storm-drr, chains/etl-pipeline, autoscale/diurnal-predictive and
+-ttl, telemetry/hpc-outage. Their decisions reach K1 on the control plane's
+columnar admission path, behind the QoS admission controller, under the
+telemetry engine and under the decision journal, which the admission stream
+does not take. The autoscale arms' warm-pool forecaster ticks on the card
+(``repro_torch.kernels.warm_forecast``: torch ops, as the JAX package's tick
+is ``jax.jit`` and no Pallas kernel).
 
 Three models are served at full width through ``repro_torch.serving.engine``,
 one after another (each one's weights are freed before the next loads):
@@ -61,6 +68,9 @@ Phases, each printing its numbers on lines of its own:
      to 64, and both serving caches (B=4, T=1152; qwen3-0.6b's KH=8, D=128
      and recurrentgemma-9b's local KH=1, D=256), where one call must run
      one kernel on the card (the kernel nodes of a CUDA-graph capture);
+     the warm-pool forecaster's tick on the card against the NumPy tick:
+     gap buckets at every power of two and one below it, decisions
+     byte-equal on the reference test's seeded stream and at 4,096 rows;
   4. time every kernel at its path's full-width shape with S=1024 (K1 and
      K2 at the admission path's F x P and at F=4096, P=1024) beside its
      plain version, its bound on the card and, where one PyTorch call
@@ -73,20 +83,26 @@ Phases, each printing its numbers on lines of its own:
      boolean length mask; time the admission decision as the path makes
      it (K1 on its pinned staging block), under each backend, at F = 1,
      5, 10, 64, 128 and 256 functions over the five platforms, and K1's
-     staged route alone;
+     staged route alone; time the forecaster's tick at 25, 256, 4,096 and
+     65,536 managed rows, NumPy against torch on the card (median of three
+     turns);
   5. admission: every policy picks the same platforms under the numpy
      backend, the torch backend and torch with the kernel, on
      tests/test_admission_fastpath.py's randomized platform states; then
      the 100,000-arrival stream three ways (numpy, torch, torch with K1)
      with identical outcomes, every kernel's launch count set to 0 just
      before the K1 run and read just after, and K1's launches equal to the
-     torch decisions; then the Inspector's four scenarios three ways
-     (numpy, torch, torch with K1) with byte-identical reports, every
-     kernel's launch count set to 0 just before each run and read just
-     after (K1's equal to the K1 run's torch decisions, above 0 in every
-     scenario but paper/fig10-weighted, whose load balancer leaves the
-     policy nothing to decide: 0 there; every other kernel 0), each report
-     without drift against its golden in benchmarks/golden/
+     torch decisions; then the Inspector's eight scenarios three ways
+     (numpy, torch, torch with K1; the autoscale arms two ways, numpy and
+     torch with K1 and the forecaster on the card) with byte-identical
+     reports, every kernel's launch count set to 0 just before each run
+     and read just after (K1's equal to the K1 run's torch decisions,
+     above 0 in every scenario but paper/fig10-weighted and the autoscale
+     arms, where a load balancer or a platform override leaves the policy
+     nothing to decide: 0 there; every other kernel 0), the forecaster's
+     torch ticks above 0 in autoscale/diurnal-predictive, the journal's
+     same-policy replay true in prov/smoke-tiny, and each report with a
+     golden in benchmarks/golden/ without drift against it
      (``benchmarks/scenario_diff.diff_reports``);
   6. per model: serve 16 requests (prompts of 64-1000 tokens, 32 new tokens
      each) at full width, bf16, random weights from seed 0, batch 4,
@@ -897,6 +913,138 @@ def time_decision():
     return next(r for r in table if r["F"] == 5), table
 
 
+# ---------------------------------------------------------------------------
+# The warm-pool forecaster's tick on the card (torch ops: the JAX package's
+# tick is jax.jit, not Pallas, so no hand-written kernel replaces it)
+# ---------------------------------------------------------------------------
+
+FORECAST_STREAMS = ((3, 9, 300), (5, 4096, 200))
+FORECAST_ROWS = (25, 256, 4096, 65536)
+
+
+def _forecast_stream(seed, rows, ticks):
+    """tests/test_autoscale.py's seeded arrival stream and exec seconds."""
+    rng = gen(seed)
+    bursts = rng.poisson(3.0, size=(ticks, rows)) * \
+        (rng.random(size=(ticks, rows)) < 0.25)
+    return bursts, rng.uniform(0.02, 0.8, rows)
+
+
+def check_forecast():
+    """Phase 3, forecaster. The gap bucket on the card at every power of
+    two and one below it against NumPy's ``floor(log2)`` (the route by
+    exponent, which the tick takes, must agree; the ``log2`` route's misses
+    are printed for the record), then the predictive policy's decisions
+    with the tick on the card byte-equal to the NumPy oracle's on the
+    reference test's seeded stream (seed 3, 9 rows, 300 ticks) and at 4,096
+    rows."""
+    from repro_torch.autoscale import PredictivePolicy
+    from repro_torch.autoscale import forecast as fc
+    from repro_torch.kernels import warm_forecast as wf
+    idle = np.array([2.0 ** k for k in range(13)]
+                    + [2.0 ** k - 1 for k in range(2, 13)] + [0.0, 3.0])
+    want = np.clip(np.floor(np.log2(np.maximum(idle, 1.0))), 0, 11)
+    t = torch.tensor(idle, dtype=torch.float32, device=DEV)
+    got = wf.gap_bucket(t, 12).cpu().numpy()
+    via_log2 = torch.clamp(torch.floor(torch.log2(torch.clamp_min(t, 1.0))),
+                           0, 11).cpu().numpy()
+    log2_misses = [float(x) for x, a, b in zip(idle, via_log2, want)
+                   if a != b]
+    if got.tolist() != want.astype(int).tolist():
+        raise AssertionError(f"gap buckets on the card {got.tolist()} != "
+                             f"NumPy's {want.astype(int).tolist()}")
+    out = {"bucket_cases": len(idle), "log2_route_misses": log2_misses}
+    for seed, rows, ticks in FORECAST_STREAMS:
+        bursts, exec_s = _forecast_stream(seed, rows, ticks)
+        traces, torch_ticks = {}, 0
+        for backend in ("numpy", "torch"):
+            with fc.forecast_settings(backend, DEV):
+                pol = PredictivePolicy(backend=backend)
+                pol.resize(rows)
+                pol.set_exec(exec_s, 1.0)
+                trace = []
+                for k in range(ticks):
+                    counts = bursts[k].astype(float)
+                    desired, ttl = pol.tick(counts, bool(counts.any()))
+                    trace.append((desired.tobytes(), ttl.tobytes()))
+                traces[backend] = trace
+                torch_ticks += pol.torch_ticks
+        if torch_ticks != int(bursts.any(axis=1).sum()) or torch_ticks == 0:
+            raise AssertionError(f"forecaster stream {seed}/{rows}: "
+                                 f"{torch_ticks} torch ticks")
+        if traces["torch"] != traces["numpy"]:
+            bad = sum(a != b for a, b in zip(traces["torch"],
+                                             traces["numpy"]))
+            raise AssertionError(f"forecaster stream {seed}/{rows}: the "
+                                 f"card's decisions differ from NumPy's at "
+                                 f"{bad} of {ticks} ticks")
+        out[f"stream_{seed}_{rows}"] = dict(ticks=ticks,
+                                            torch_ticks=torch_ticks,
+                                            decisions_equal=True)
+    say("forecast", check="tick on the card against NumPy", **out, ok=True)
+
+
+def time_forecast():
+    """Phase 4, forecaster. Host ms a forecaster tick (state and arrival
+    counts in, decisions on the host) at ``FORECAST_ROWS`` managed rows,
+    the NumPy tick against the torch tick on the card, turn by turn (the
+    median of three turns), over a seeded 16-tick arrival cycle so that gap
+    histograms fill as on a real stream."""
+    from repro_torch.autoscale import forecast as fc
+    p = fc.ForecastParams()
+    table = []
+    fc.set_forecast_device(DEV)
+    try:
+        for rows in FORECAST_ROWS:
+            bursts, exec_s = _forecast_stream(31, rows, 16)
+            bursts = bursts.astype(float)
+            bursts[:, 0] += 1.0           # every tick has an arrival
+            coeff = exec_s * p.headroom
+            ticks = {}
+            for backend in ("numpy", "torch"):
+                st = fc.ForecastState(p.n_buckets)
+                st.resize(rows)
+                bufs = dict(desired=np.zeros(rows), scratch=np.zeros(rows),
+                            ttl=np.full(rows, p.default_ttl_ticks),
+                            hold=np.zeros(rows, dtype=bool))
+                k = [0]
+
+                def tick(backend=backend, st=st, bufs=bufs, k=k):
+                    counts = bursts[k[0] % 16]
+                    k[0] += 1
+                    if backend == "numpy":
+                        fc.predictive_tick_numpy(
+                            st, counts, coeff, p, True, bufs["desired"],
+                            bufs["scratch"], bufs["ttl"], bufs["hold"],
+                            hold_thr=p.hold_min_rps)
+                    else:
+                        fc.predictive_tick_torch(
+                            st, counts, coeff, p, bufs["desired"],
+                            bufs["ttl"], hold_thr=p.hold_min_rps)
+                ticks[backend] = tick
+            iters = 30 if rows >= 65536 else (200 if rows >= 4096 else 500)
+            times = {"numpy": [], "torch": []}
+            for _ in range(3):
+                for backend, tick in ticks.items():
+                    times[backend].append(_host_ms(tick, iters))
+            row = dict(rows=rows, iters=iters,
+                       numpy_ms=float(np.median(times["numpy"])),
+                       torch_ms=float(np.median(times["torch"])),
+                       numpy_turns=times["numpy"], torch_turns=times["torch"],
+                       torch_leads_every_turn=all(
+                           t < n for t, n in zip(times["torch"],
+                                                 times["numpy"])))
+            say("time", what="forecaster tick", clock="host", **row)
+            table.append(row)
+    finally:
+        fc.set_forecast_device(None)
+    say("time", what="forecaster tick crossover",
+        rows=[r["rows"] for r in table],
+        torch_leads_every_turn_at=[r["rows"] for r in table
+                                   if r["torch_leads_every_turn"]],
+        torch_forecast_min=fc.TORCH_FORECAST_MIN)
+
+
 POLICY_FACTORIES = {
     "perf_ranked": lambda s, cp: s.PerformanceRankedPolicy(cp.perf),
     "utilization": lambda s, cp: s.UtilizationAwarePolicy(
@@ -1013,45 +1161,64 @@ def admission_stream() -> dict:
     return launches
 
 
-# The Inspector's registry scenarios whose goldens (benchmarks/golden/) turn
-# on no autoscale or observability layer, at their registered sizes, and
-# whether their K1 run must launch K1 (once a torch decision). Each decides
-# a few distinct functions at a time, far below TORCH_DECIDE_MIN, so the
-# torch runs set the backend to "torch", not "auto". paper/fig10-weighted's
-# gateway routes every invocation through its weighted load balancer, which
-# names the platform: the composite policy decides nothing there, and K1
-# must launch exactly 0 times.
-INSPECTOR_SCENARIOS = {"smoke/tiny": True, "paper/fig10-weighted": False,
-                       "qos/burst-storm-drr": True,
-                       "chains/etl-pipeline": True}
+# The Inspector's registry scenarios: the seven with a golden in
+# benchmarks/golden/ and prov/smoke-tiny, at their registered sizes; the runs
+# of each (label, decision backend, K1, forecaster backend); and whether
+# their K1 run must launch K1 (once a torch decision). Each decides a few
+# distinct functions at a time, far below TORCH_DECIDE_MIN, so the torch runs
+# set the backend to "torch", not "auto". paper/fig10-weighted's gateway
+# routes every invocation through its weighted load balancer, and the
+# autoscale arms run one platform named by platform_override: the composite
+# policy decides nothing there, and K1 must launch exactly 0 times. The
+# autoscale arms manage one row, below TORCH_FORECAST_MIN, so their torch
+# run forces the forecaster to torch on the card; -predictive's must tick
+# there (the fixed TTL of -ttl has no forecaster). telemetry/hpc-outage runs
+# K1 under the telemetry engine, prov/smoke-tiny under the decision journal,
+# whose same-policy replay must reproduce every journaled choice.
+THREE_WAYS = (("numpy", "numpy", False, "numpy"),
+              ("torch", "torch", False, "numpy"),
+              ("torch_k1", "torch", True, "numpy"))
+FORECAST_WAYS = (("numpy", "numpy", False, "numpy"),
+                 ("torch_k1", "torch", True, "torch"))
+INSPECTOR_SCENARIOS = {"smoke/tiny": (THREE_WAYS, True),
+                       "paper/fig10-weighted": (THREE_WAYS, False),
+                       "qos/burst-storm-drr": (THREE_WAYS, True),
+                       "chains/etl-pipeline": (THREE_WAYS, True),
+                       "autoscale/diurnal-predictive": (FORECAST_WAYS, False),
+                       "autoscale/diurnal-ttl": (FORECAST_WAYS, False),
+                       "telemetry/hpc-outage": (THREE_WAYS, True),
+                       "prov/smoke-tiny": (THREE_WAYS, True)}
 
 
 def inspector() -> dict:
-    """Phase 5c. The Inspector's four golden scenarios three ways (numpy,
-    torch, torch with K1), through ``repro_torch.launch.inspector_scenario``:
-    byte-identical reports, every kernel's launch count set to 0 just before
-    each run and read just after (K1's equal to the K1 run's torch
-    decisions, every other count 0), and each report without drift against
-    its golden by ``benchmarks/scenario_diff.diff_reports``. Returns K1's
-    launches by scenario."""
+    """Phase 5c. The Inspector's scenarios (``INSPECTOR_SCENARIOS``) through
+    ``repro_torch.launch.inspector_scenario``: byte-identical reports across
+    the runs, every kernel's launch count set to 0 just before each run and
+    read just after (K1's equal to the K1 run's torch decisions, every other
+    count 0), the forecaster's torch ticks counted, the journal's replay
+    oracle held, and each report with a golden without drift against it by
+    ``benchmarks/scenario_diff.diff_reports``. Returns K1's launches by
+    scenario."""
     from benchmarks.scenario_diff import diff_reports
     from repro_torch.launch.inspector_scenario import run
+    from repro_torch.obs import replay_matches
     k1_launches = {}
-    for name, decides in INSPECTOR_SCENARIOS.items():
+    for name, (ways, decides) in INSPECTOR_SCENARIOS.items():
         reports = {}
-        for label, backend, kernel in (("numpy", "numpy", False),
-                                       ("torch", "torch", False),
-                                       ("torch_k1", "torch", True)):
+        for label, backend, kernel, forecaster in ways:
             kernels = wrappers()
             torch.cuda.synchronize()
             for fn in kernels.values():
                 fn.launches = 0
-            out = run(name, backend, kernel, DEV)
+            out = run(name, backend, kernel, DEV, forecaster)
             torch.cuda.synchronize()
             launches = {k: fn.launches for k, fn in kernels.items()}
             rep = out["report"]
             t = rep.totals
             n = out["torch_decisions"]
+            journal = out["state"].control_plane.journal
+            replay_ok = None if journal is None else replay_matches(journal)
+            auto = out["scenario"].autoscale
             say("inspector", scenario=name, run=label, wall_s=out["wall_s"],
                 decisions=t["decisions"], torch_decisions=n,
                 host_ms_per_decision=out["wall_s"] * 1e3
@@ -1059,7 +1226,11 @@ def inspector() -> dict:
                 completed=t["completed"], rejected=t["rejected"],
                 p90_s=t["p90_s"], cold_starts=t["cold_starts"],
                 chains_completed=t.get("chains_completed"),
-                launches=launches)
+                forecaster=forecaster if auto else None,
+                autoscale_ticks=t["autoscale"]["ticks"] if auto else None,
+                torch_forecaster_ticks=out["torch_ticks"],
+                journal_rows=None if journal is None else journal.n,
+                replay_matches=replay_ok, launches=launches)
             want = {k: 0 for k in launches}
             if kernel:
                 want["fused_composite_decide"] = n
@@ -1071,16 +1242,28 @@ def inspector() -> dict:
             if launches != want:
                 raise AssertionError(f"{name} under {label}: kernel "
                                      f"launches {launches} != {want}")
+            ticks_want = bool(auto and forecaster == "torch"
+                              and auto["policy"] == "predictive")
+            if (out["torch_ticks"] > 0) != ticks_want:
+                raise AssertionError(f"{name} under {label}: "
+                                     f"{out['torch_ticks']} torch forecaster "
+                                     f"ticks")
+            if replay_ok is False:
+                raise AssertionError(f"{name} under {label}: the same-policy "
+                                     f"replay diverged from the journal")
             reports[label] = rep.to_json()
-        for label in ("torch", "torch_k1"):
+        for label in reports:
             if reports[label] != reports["numpy"]:
                 raise AssertionError(f"{name}: the report under {label} "
                                      f"differs from numpy's")
-        golden = json.loads((ROOT / "benchmarks" / "golden"
-                             / f"{name.replace('/', '_')}.json").read_text())
-        drift = diff_reports(json.loads(reports["numpy"]), golden)
+        path = (ROOT / "benchmarks" / "golden"
+                / f"{name.replace('/', '_')}.json")
+        drift = (diff_reports(json.loads(reports["numpy"]),
+                              json.loads(path.read_text()))
+                 if path.exists() else [])
         say("inspector", scenario=name, identical=list(reports),
             report_bytes=len(reports["numpy"]),
+            golden=path.name if path.exists() else None,
             golden_drift=[str(d) for d in drift], ok=not drift)
         if drift:
             raise AssertionError(f"{name}: drift against its golden: "
@@ -1326,10 +1509,12 @@ def main() -> int:
     err_rg = check_rglru()
     err_ps = check_policy_score()
     err_da, k4_kernels = check_decode()
+    check_forecast()
     t_fa, t_ssd, t_rg = time_flash(), time_ssd(), time_rglru()
     t_da = time_decode()
     t_ps = time_policy_score()
     t_dec, t_cross = time_decision()
+    time_forecast()
     policy_parity()
     launches = {"admission": admission_stream()}
     inspector_launches = inspector()

@@ -81,26 +81,28 @@ class FDNControlPlane:
         self.hedge = HedgePolicy(self.clock, self.perf,
                                  enabled=enable_hedging)
         self.predictive_prewarm = predictive_prewarm
-        # warm-pool lifecycle control loop (the autoscale layer, not
-        # ported yet); None — platforms manage their own keep-alive via
-        # the legacy faas-idler
+        # warm-pool lifecycle control loop (repro_torch.autoscale); None
+        # until attach_autoscaler — platforms then manage their own
+        # keep-alive via the legacy faas-idler
         self.autoscaler = None
-        # flight recorder (the observability layer, not ported yet); None
-        # — every tap in the admission paths guards on it with one check
-        # per burst
+        # flight recorder (repro_torch.obs); None until attach_recorder —
+        # every tap in the admission paths guards on it with one check per
+        # burst
         self.recorder = None
-        # live telemetry engine (not ported yet); None — metrics-ingest
-        # and platform-health taps all guard on it with one ``is None``
-        # check
+        self._hedge_tap = False
+        # live telemetry engine (repro_torch.obs.telemetry); None until
+        # attach_telemetry — metrics-ingest and platform-health taps all
+        # guard on it with one ``is None`` check
         self.telemetry = None
         # QoS layer (repro_torch.core.qos); None until attach_qos — the admit
         # core consults the admission controller with one ``is None``
         # check per request
         self.qos = None
         self.admission = None
-        # decision journal (not ported yet); None — the fused-decision
-        # sites guard on it with one ``is None`` check per burst, so
-        # provenance-off admission costs nothing per invocation
+        # decision journal (repro_torch.obs.provenance); None until
+        # attach_provenance — the fused-decision sites guard on it with
+        # one ``is None`` check per burst, so provenance-off admission
+        # costs nothing per invocation
         self.journal = None
         # retain_completions=False drops the per-invocation completed and
         # rejected lists (open-loop sinks own the samples; 10^6-invocation
@@ -651,34 +653,76 @@ class FDNControlPlane:
                 rec.record_prewarm(target.prof.name, fn.name,
                                    self.clock.now(), n)
 
-    # ------------------------------------- layers not yet in the port ---
-    # The autoscale and observability layers of the JAX package are later
-    # slices of the port (ROADMAP.md, Queue 1). Until they land,
-    # their attach points raise; the recorder / journal / telemetry hooks
-    # above stay None and every tap keeps its one ``is None`` check.
-    def attach_autoscaler(self, *args, **kwargs):
-        """Warm-pool lifecycle controller: not ported yet."""
-        raise NotImplementedError(
-            "attach_autoscaler: the autoscale layer is not ported to "
-            "repro_torch yet (ROADMAP.md, Queue 1 item 5)")
+    # -------------------------------------------------------- autoscale ---
+    def attach_autoscaler(self, policy: str = "predictive",
+                          tick_s: float = 1.0,
+                          backend: Optional[str] = None,
+                          policy_kwargs: Optional[Dict] = None,
+                          start: bool = True):
+        """Attach the warm-pool lifecycle controller
+        (repro_torch.autoscale): takes over keep-alive from every
+        platform's faas-idler and drives prewarm/retire pool transitions
+        from the named keep-alive policy ("ttl" | "scale_to_zero" |
+        "concurrency" | "predictive")."""
+        from repro_torch.autoscale import WarmPoolController, make_policy
+        kw = dict(policy_kwargs or {})
+        if backend is not None:
+            kw["backend"] = backend
+        self.autoscaler = WarmPoolController(
+            self.platforms, self.perf, self.clock,
+            make_policy(policy, **kw), tick_s=tick_s).attach()
+        self.autoscaler.recorder = self.recorder
+        if start:
+            self.autoscaler.start()
+        return self.autoscaler
 
+    # ----------------------------------------------------- observability --
     def attach_recorder(self, recorder):
-        """Flight recorder: not ported yet."""
-        raise NotImplementedError(
-            "attach_recorder: the observability layer (flight recorder) is "
-            "not ported to repro_torch yet (ROADMAP.md, Queue 1 item 6)")
+        """Attach a flight recorder (repro_torch.obs) plane-wide: admission
+        taps here, launch taps at every platform, warm-pool taps at the
+        autoscaler, and a hedge-duplicate tap on the hedge policy."""
+        self.recorder = recorder
+        for p in self.platforms.values():
+            p.recorder = recorder
+        if self.autoscaler is not None:
+            self.autoscaler.recorder = recorder
+        if not self._hedge_tap:
+            self._hedge_tap = True
+
+            def _hedge_span(orig, dup):
+                rec = self.recorder
+                if rec is not None:
+                    rec.record_hedge(dup, orig, self.clock.now())
+
+            self.hedge.on_duplicate.append(_hedge_span)
+        return recorder
 
     def attach_provenance(self, journal):
-        """Decision journal: not ported yet."""
-        raise NotImplementedError(
-            "attach_provenance: the observability layer (decision journal) "
-            "is not ported to repro_torch yet (ROADMAP.md, Queue 1 item 6)")
+        """Attach a decision journal (repro_torch.obs.provenance): every
+        fused ``fn_decisions`` admission records one provenance row per
+        distinct function — snapshot feature columns, filter-kill
+        bitmask, chosen/runner-up slots and margin — and stamps the row
+        id onto the routed invocations for the completion join.  Binds
+        the live policy's cascade + params and this plane's perf and
+        placement models; rows routed by overrides, spillover, hedging
+        or stateful rotation policies are never journaled (their
+        ``decision`` stays -1)."""
+        self.journal = journal.bind(self.policy, self.perf,
+                                    self.placement)
+        return journal
 
     def attach_telemetry(self, engine):
-        """Live telemetry engine: not ported yet."""
-        raise NotImplementedError(
-            "attach_telemetry: the observability layer (telemetry) is not "
-            "ported to repro_torch yet (ROADMAP.md, Queue 1 item 6)")
+        """Attach a live telemetry engine (repro_torch.obs.telemetry)
+        plane-wide: metrics-ingest taps via the registry, platform-health
+        taps (queue depth / utilization / watts) at every platform's
+        drain tail and the liveness heartbeat.  Callers register SLO
+        thresholds via ``engine.set_slo`` so rollup buckets count
+        error-budget burn."""
+        self.telemetry = engine
+        self.metrics.telemetry = engine
+        for p in self.platforms.values():
+            p.telemetry = engine
+        return engine
 
     def attach_qos(self, spec):
         """Attach the QoS layer (repro_torch.core.qos) plane-wide: one

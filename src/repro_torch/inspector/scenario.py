@@ -17,10 +17,8 @@ never touches a per-sample Python hot path.
 
 The function bodies and the seeded store objects live on ``device`` (the
 CUDA card unless the caller asks for the CPU); where the scheduler's torch
-backend computes is ``scheduler.set_score_device``.  The autoscale and
-observability layers are not ported yet: a scenario that turns on
-``autoscale``, ``trace``, ``telemetry`` or ``provenance`` raises
-``NotImplementedError`` naming its ROADMAP.md item.
+backend computes is ``scheduler.set_score_device``, and the forecaster's
+``autoscale.forecast.set_forecast_device``.
 """
 from __future__ import annotations
 
@@ -175,10 +173,10 @@ class Scenario:
     retain_objects: bool = False             # keep per-invocation lists
     enable_hedging: bool = False
     predictive_prewarm: bool = False
-    # warm-pool lifecycle (the autoscale layer, not ported yet):
-    # {"policy": "ttl" | "scale_to_zero" | "concurrency" | "predictive",
-    # "tick_s": ..., "backend": ..., "policy_kwargs": {...}}; None leaves
-    # platforms on their own faas-idler
+    # warm-pool lifecycle (repro_torch.autoscale): {"policy": "ttl" |
+    # "scale_to_zero" | "concurrency" | "predictive", "tick_s": ...,
+    # "backend": ..., "policy_kwargs": {...}}; None leaves platforms on
+    # their own faas-idler
     autoscale: Optional[Dict[str, Any]] = None
     # keep-alive watts charged per idle warm replica (0 keeps the
     # historical accounting; the prewarm-policy studies set it)
@@ -190,13 +188,12 @@ class Scenario:
     # (object key, destination store) pairs migrated before load starts —
     # the §5.1.4 adaptive data-management move the fig11 arms A/B
     migrate_objects: Tuple[Tuple[str, str], ...] = ()
-    # flight recorder (the observability layer, not ported yet):
-    # per-invocation lifecycle tracing and the report's latency_breakdown
-    # section; trace_sample < 1 keeps a deterministic head-based subset of
-    # invocations
+    # flight recorder (repro_torch.obs): per-invocation lifecycle tracing
+    # and the report's latency_breakdown section; trace_sample < 1 keeps a
+    # deterministic head-based subset of invocations
     trace: bool = False
     trace_sample: float = 1.0
-    # live telemetry (not ported yet): multi-resolution rollups,
+    # live telemetry (repro_torch.obs.telemetry): multi-resolution rollups,
     # burn-rate SLO alerting and platform-health anomaly detection.  A
     # dict mixing TelemetryConfig and AlertConfig keys (each picks the
     # keys it knows), or None to leave the engine off
@@ -206,7 +203,7 @@ class Scenario:
     # per-class SLO multipliers, token-bucket rate limits, load-shedding /
     # brownout thresholds.  None leaves admission and queues exactly as before
     qos: Optional[Union[QosSpec, Dict[str, Any]]] = None
-    # decision provenance (not ported yet): journal every fused
+    # decision provenance (repro_torch.obs.provenance): journal every fused
     # fn_decisions admission (feature snapshot, filter-kill bitmask,
     # runner-up margin), stamp journal row ids onto invocations, and
     # surface the calibration/regret analysis as the report's
@@ -327,18 +324,22 @@ def assemble(sc: Scenario, device: DeviceLike = None):
             policy_kwargs=kw.pop("policy_kwargs", None))
         if kw:
             raise ValueError(f"unknown autoscale keys: {sorted(kw)}")
-    # the observability layer is not ported yet: its attach points raise
-    # NotImplementedError, naming their ROADMAP.md item
     if sc.trace:
-        cp.attach_recorder(None)
+        from repro_torch.obs import FlightRecorder
+        cp.attach_recorder(FlightRecorder(sample=sc.trace_sample))
     if sc.telemetry is not None:
-        cp.attach_telemetry(None)
+        from repro_torch.obs.telemetry import TelemetryConfig, TelemetryEngine
+        engine = cp.attach_telemetry(
+            TelemetryEngine(TelemetryConfig.from_dict(sc.telemetry)))
+        for fn in fns.values():
+            engine.set_slo(fn.name, fn.slo.p90_response_s)
     if sc.qos is not None:
         # after telemetry: the admission controller's burn-rate overload
         # signal reads cp.telemetry rollups when configured
         cp.attach_qos(sc.qos_spec())
     if sc.provenance:
-        cp.attach_provenance(None)
+        from repro_torch.obs.provenance import DecisionJournal
+        cp.attach_provenance(DecisionJournal())
     attach_completion_hooks(cp)
     gw = Gateway(cp)
     if sc.lb_policy is not None:
@@ -364,11 +365,12 @@ class ScenarioReport:
     # bytes moved between platforms, and the planner's placement decision
     per_chain: Dict[str, Dict[str, Any]] = field(default_factory=dict)
     # flight-recorder runs only: segment decomposition totals, exact-
-    # reconciliation counters, and SLO-violation attribution (the
-    # observability layer, not ported yet: always empty here)
+    # reconciliation counters, and SLO-violation attribution
+    # (repro_torch.obs)
     latency_breakdown: Dict[str, Any] = field(default_factory=dict)
     # telemetry runs only: rollup summary, burn-rate SLO alert events and
-    # platform-health anomalies (not ported yet: always empty here)
+    # platform-health anomalies (repro_torch.obs.telemetry /
+    # repro_torch.obs.alerts)
     alerts: Dict[str, Any] = field(default_factory=dict)
     # QoS runs only: per-class / per-tenant latency + class-adjusted SLO
     # stats, DRR fairness shares and the admission controller's shed /
@@ -376,7 +378,7 @@ class ScenarioReport:
     qos: Dict[str, Any] = field(default_factory=dict)
     # provenance runs only: decision-journal calibration (predicted-vs-
     # realized latency error), filter kill counts, regret and policy
-    # churn (not ported yet: always empty here)
+    # churn (repro_torch.obs.provenance)
     decision_provenance: Dict[str, Any] = field(default_factory=dict)
 
     def to_dict(self) -> Dict[str, Any]:
@@ -710,18 +712,28 @@ def build_report(sc: Scenario, cp: FDNControlPlane, fns,
         totals["chains_completed"] = chain_exec.completed
         totals["chains_failed"] = chain_exec.failed
 
-    # the recorder, telemetry and journal sections come with the
-    # observability layer, which is not ported yet: its attach points raise,
-    # so no run has a recorder, telemetry engine or journal to report
     latency_breakdown: Dict[str, Any] = {}
+    if cp.recorder is not None:
+        from repro_torch.obs.analysis import latency_breakdown_section
+        latency_breakdown = latency_breakdown_section(cp.recorder, cols,
+                                                      fns)
+
     alerts: Dict[str, Any] = {}
-    provenance: Dict[str, Any] = {}
+    if cp.telemetry is not None:
+        from repro_torch.obs.alerts import AlertConfig, alerts_section
+        alerts = alerts_section(cp.telemetry, sorted(fns),
+                                AlertConfig.from_dict(sc.telemetry or {}))
 
     qos_section: Dict[str, Any] = {}
     qspec = sc.qos_spec()
     if qspec is not None:
         qos_section = _qos_section(qspec, cp, cols, rt, slo_by_fid,
                                    sc.duration_s)
+
+    provenance: Dict[str, Any] = {}
+    if cp.journal is not None:
+        from repro_torch.obs.provenance import decision_provenance_section
+        provenance = decision_provenance_section(cp.journal, cols)
 
     return ScenarioReport(schema_version=SCHEMA_VERSION,
                           scenario=sc.to_dict(), totals=totals,

@@ -7,18 +7,19 @@ they match under every decision backend.
 
     PYTHONPATH=src python -m repro_torch.launch.inspector_scenario \\
         [scenario-name] [--backend numpy|torch|auto] [--kernel] \\
-        [--device D] [--list]
+        [--forecast numpy|torch|auto] [--device D] [--list]
 
 Default scenario: mix/five-platform (all five Table-2 functions as
 concurrent Poisson streams over all five Table-3 platforms). ``--list``
 prints every registered scenario. ``--backend`` picks the decision backend
 (``auto``: torch for decisions over at least ``TORCH_DECIDE_MIN`` distinct
 functions, numpy below). ``--kernel`` routes the torch backend's composite
-decision through the CUDA kernel K1. ``--device`` is where the torch
-backend, the function bodies and the store objects live: the CUDA card
-unless ``cpu`` is asked for; without a card the run stops with an error
-naming it. Scenarios that turn on the autoscale or observability layers
-raise ``NotImplementedError``: those layers are not ported yet.
+decision through the CUDA kernel K1. ``--forecast`` picks the warm-pool
+forecaster's backend in scenarios with an autoscaler (``auto``: torch at
+``TORCH_FORECAST_MIN`` managed rows or more). ``--device`` is where the
+torch backends, the function bodies and the store objects live: the CUDA
+card unless ``cpu`` is asked for; without a card the run stops with an
+error naming it.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import sys
 import time
 from typing import Dict, Optional
 
+from repro_torch.autoscale import forecast
 from repro_torch.core import scheduler as sched
 from repro_torch.device import DeviceLike, NoCudaDevice, resolve
 from repro_torch.inspector import registry, run_scenario_state
@@ -34,21 +36,27 @@ from repro_torch.kernels import policy_score as ps
 
 
 def run(name: str, backend: str = "auto", kernel: bool = False,
-        device: DeviceLike = None) -> Dict[str, object]:
-    """One registry scenario under one decision backend. The score backend,
-    score device and kernel switch are set for the run and restored after
-    it. Returns the wall seconds, the report, the policy's torch decisions
-    and K1's launches in the run."""
+        device: DeviceLike = None, forecast_backend: str = "auto"
+        ) -> Dict[str, object]:
+    """One registry scenario under one decision backend and one forecaster
+    backend. The score and forecast backends, their device and the kernel
+    switch are set for the run and restored after it. Returns the wall
+    seconds, the report, the run's state, the policy's torch decisions, the
+    forecaster's torch ticks and K1's launches in the run."""
     dev = resolve(device)
     sc = registry.get(name)
-    with sched.score_settings(backend, dev, kernel):
+    with sched.score_settings(backend, dev, kernel), \
+            forecast.forecast_settings(forecast_backend, dev):
         k1 = ps.fused_composite_decide_cuda.launches
         t0 = time.perf_counter()
         state = run_scenario_state(sc, dev)
         wall = time.perf_counter() - t0
         k1 = ps.fused_composite_decide_cuda.launches - k1
+    cp = state.control_plane
     return {"scenario": sc, "wall_s": wall, "report": state.report,
-            "torch_decisions": state.control_plane.policy.torch_decisions,
+            "state": state, "torch_decisions": cp.policy.torch_decisions,
+            "torch_ticks": (0 if cp.autoscaler is None
+                            else cp.autoscaler.policy.torch_ticks),
             "k1_launches": k1}
 
 
@@ -61,6 +69,8 @@ def main(argv: Optional[list] = None) -> int:
                     default="auto")
     ap.add_argument("--kernel", action="store_true",
                     help="composite decision through the CUDA kernel K1")
+    ap.add_argument("--forecast", choices=("numpy", "torch", "auto"),
+                    default="auto", help="warm-pool forecaster backend")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
@@ -69,7 +79,8 @@ def main(argv: Optional[list] = None) -> int:
             print(n)
         return 0
     try:
-        out = run(args.name, args.backend, args.kernel, args.device)
+        out = run(args.name, args.backend, args.kernel, args.device,
+                  args.forecast)
     except NoCudaDevice as exc:
         print(f"inspector_scenario: {exc}", file=sys.stderr)
         return 2
@@ -84,7 +95,8 @@ def main(argv: Optional[list] = None) -> int:
     print(f"backend              : {args.backend}"
           f"{' + K1' if args.kernel else ''} on {resolve(args.device)}: "
           f"{out['torch_decisions']} torch decisions, "
-          f"{out['k1_launches']} K1 launches")
+          f"{out['k1_launches']} K1 launches, "
+          f"{out['torch_ticks']} torch forecaster ticks")
     print(f"submitted/completed  : {t['submitted']} / {t['completed']} "
           f"(rejected {t['rejected']})")
     print(f"P50 / P90 / P99      : {t['p50_s']:.3f} / {t['p90_s']:.3f} / "

@@ -161,16 +161,22 @@ def test_mixed_stream_sinks_are_byte_identical(hedging, columnar, qos):
         assert tcp.hedge.group_timers_armed > 0
 
 
-def test_unported_layers_raise():
-    cp = TPlane()
-    for attach in (cp.attach_recorder, cp.attach_provenance,
-                   cp.attach_telemetry):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attach(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cp.attach_autoscaler()
-    # the chains layer is ported: its factory gives the port's executor
+def test_attach_points_give_the_ports_layers():
+    from repro_torch.autoscale import WarmPoolController
     from repro_torch.chains.executor import ChainExecutor
-    assert isinstance(cp.chain_executor({}), ChainExecutor)
+    from repro_torch.obs import DecisionJournal, FlightRecorder
+    from repro_torch.obs.telemetry import TelemetryConfig, TelemetryEngine
+    cp = TPlane()
     assert cp.recorder is None and cp.journal is None
-    assert cp.telemetry is None
+    assert cp.telemetry is None and cp.autoscaler is None
+    ctl = cp.attach_autoscaler(policy="predictive", start=False)
+    assert isinstance(ctl, WarmPoolController) and cp.autoscaler is ctl
+    rec = cp.attach_recorder(FlightRecorder())
+    assert isinstance(rec, FlightRecorder) and cp.recorder is rec
+    assert ctl.recorder is rec
+    journal = cp.attach_provenance(DecisionJournal())
+    assert isinstance(journal, DecisionJournal) and cp.journal is journal
+    eng = cp.attach_telemetry(TelemetryEngine(TelemetryConfig()))
+    assert isinstance(eng, TelemetryEngine) and cp.telemetry is eng
+    assert cp.metrics.telemetry is eng
+    assert isinstance(cp.chain_executor({}), ChainExecutor)

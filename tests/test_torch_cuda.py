@@ -485,3 +485,86 @@ def test_inspector_scenario_three_ways_through_k1(cuda_device):
             assert launched == [0] * len(counted)
     assert reports["torch"] == reports["numpy"]
     assert reports["torch_k1"] == reports["numpy"]
+
+
+# ---------------------------------------------------------------------------
+# The warm-pool forecaster's tick on the card (torch ops, no hand-written
+# kernel: the JAX package's tick is jax.jit, not Pallas). Decisions bit-equal
+# to the NumPy oracle's.
+# ---------------------------------------------------------------------------
+
+def _forecast_stream(seed, rows, ticks):
+    """tests/test_autoscale.py's seeded arrival stream and exec seconds."""
+    rng = np.random.default_rng(seed)
+    bursts = rng.poisson(3.0, size=(ticks, rows)) * \
+        (rng.random(size=(ticks, rows)) < 0.25)
+    return bursts, rng.uniform(0.02, 0.8, rows)
+
+
+def _forecast_trajectory(backend, bursts, exec_s):
+    from repro_torch.autoscale import PredictivePolicy
+    pol = PredictivePolicy(backend=backend)
+    pol.resize(bursts.shape[1])
+    pol.set_exec(exec_s, 1.0)
+    out = []
+    for k in range(bursts.shape[0]):
+        counts = bursts[k].astype(float)
+        desired, ttl = pol.tick(counts, bool(counts.any()))
+        out.append((desired.tobytes(), np.asarray(ttl).tobytes()))
+    return out, pol.torch_ticks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,rows,ticks", [(3, 9, 300), (5, 4096, 120)])
+def test_forecaster_tick_on_card_gives_numpy_decisions(cuda_device, seed,
+                                                       rows, ticks):
+    from repro_torch.autoscale import forecast
+    bursts, exec_s = _forecast_stream(seed, rows, ticks)
+    with forecast.forecast_settings("numpy", cuda_device):
+        want, _ = _forecast_trajectory("numpy", bursts, exec_s)
+    with forecast.forecast_settings("torch", cuda_device):
+        got, ticked = _forecast_trajectory("torch", bursts, exec_s)
+    assert ticked == int(bursts.any(axis=1).sum()) > 0
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_gap_bucket_on_card_exact_at_powers_of_two(cuda_device):
+    from repro_torch.kernels import warm_forecast as wf
+    idle = np.array([0.0] + [2.0 ** k for k in range(16)]
+                    + [2.0 ** k - 1 for k in range(2, 16)]
+                    + [3.0, 5.0, 1000.0, 4095.0, 4097.0, 1e7])
+    want = np.clip(np.floor(np.log2(np.maximum(idle, 1.0))), 0, 11)
+    got = wf.gap_bucket(torch.tensor(idle, dtype=torch.float32,
+                                     device=cuda_device), 12)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert got.cpu().numpy().tolist() == want.astype(int).tolist()
+
+
+@pytest.mark.cuda
+def test_forecaster_raises_without_a_card(cuda_device, monkeypatch):
+    from repro_torch import device as devmod
+    from repro_torch.autoscale import PredictivePolicy, forecast
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with forecast.forecast_settings("torch", None):
+        pol = PredictivePolicy()
+        pol.resize(3)
+        with pytest.raises(devmod.NoCudaDevice, match="CUDA card"):
+            pol.tick(np.array([1.0, 0.0, 2.0]), True)
+    assert pol.torch_ticks == 0
+
+
+@pytest.mark.cuda
+def test_autoscale_scenario_with_the_forecaster_on_card(cuda_device):
+    """autoscale/diurnal-predictive with its forecaster forced to torch on
+    the card gives the NumPy forecaster's report, byte for byte; K1 is on
+    no path of it (one platform, named by the override)."""
+    from repro_torch.launch.inspector_scenario import run
+    want = run("autoscale/diurnal-predictive", "numpy", False, cuda_device,
+               "numpy")
+    before = ps.fused_composite_decide_cuda.launches
+    got = run("autoscale/diurnal-predictive", "torch", True, cuda_device,
+              "torch")
+    assert got["torch_ticks"] > 0 and want["torch_ticks"] == 0
+    assert ps.fused_composite_decide_cuda.launches == before
+    assert got["report"].to_json() == want["report"].to_json()

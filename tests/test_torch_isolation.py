@@ -36,7 +36,12 @@ def test_every_module_imports_without_jax_or_repro():
                  "kernels.ssd_scan", "kernels.rglru_scan", "models.mamba2",
                  "models.rglru", "core.control_plane", "core.scheduler",
                  "kernels.policy_score", "chains.executor", "chains.planner",
-                 "inspector.scenario"):
+                 "inspector.scenario", "kernels.warm_forecast",
+                 "autoscale.forecast", "autoscale.policies",
+                 "autoscale.controller", "obs.recorder", "obs.analysis",
+                 "obs.export", "obs.telemetry", "obs.alerts",
+                 "obs.provenance", "obs.whatif", "launch.bench_autoscale",
+                 "launch.explain"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -82,7 +87,8 @@ def test_batch_scheduling_launcher_names_the_missing_card():
 
 
 @pytest.mark.parametrize("launcher,argv", [
-    ("inspector_scenario", "['smoke/tiny']"), ("chain_execution", "[]")])
+    ("inspector_scenario", "['smoke/tiny']"), ("chain_execution", "[]"),
+    ("bench_autoscale", "['--smoke']"), ("explain", "['prov/smoke-tiny']")])
 def test_inspector_launchers_name_the_missing_card(launcher, argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible here")

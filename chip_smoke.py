@@ -27,7 +27,7 @@ does not take. The autoscale arms' warm-pool forecaster ticks on the card
 (``repro_torch.kernels.warm_forecast``: torch ops, as the JAX package's tick
 is ``jax.jit`` and no Pallas kernel).
 
-Three models are served at full width through ``repro_torch.serving.engine``,
+Four models are served at full width through ``repro_torch.serving.engine``,
 one after another (each one's weights are freed before the next loads):
 
 * qwen3-0.6b (dense): prefill attention through the flash attention kernel
@@ -36,7 +36,18 @@ one after another (each one's weights are freed before the next loads):
   (``csrc/ssd_scan.cu``, K5);
 * recurrentgemma-9b (hybrid): prefill through the RG-LRU scan kernel
   (``csrc/rglru_scan.cu``, K6) and local attention through K3 at head_dim
-  256.
+  256;
+* mixtral-8x7b (MoE, top-2 of 8 experts, window 4096) at 24 of its 32
+  layers, every width as published (its 32 layers, 93.4 GB of bf16 weights,
+  do not fit the card's 80 GB): prefill attention through K3 at head_dim
+  128, 32 query heads over 8 kv heads.
+
+Two more run through ``repro_torch.models.model_api`` (prefill, then greedy
+decode steps), at full width and depth, because the engine feeds token ids
+only, as the JAX engine does: phi-3-vision-4.2b (VLM: 576 stub image
+embeddings in front of the text), whose prefill attention runs K3 at
+head_dim 96, and whisper-small (encoder-decoder over 1,500 stub audio
+frames), which runs no kernel, in the JAX package as here.
 
 Split-K decode attention (``kernels/ops.decode_attention``, the kernel
 ``csrc/decode_attention.cu``, K4) is an entry point that no serving path
@@ -58,7 +69,8 @@ Phases, each printing its numbers on lines of its own:
      printed beside the output's mean |value|; K6 also at the serving
      buckets S = 16, 64, 256 and 512 and at S = 1, 5 and 100; K3 on the cases of
      ``tests/flash_attention_cases.py`` and at every prefill bucket of both
-     paths; K5 on the cases of ``tests/ssd_scan_cases.py`` (f32 and bf16)
+     paths (and at mixtral's and phi-3-vision's prefill shapes); K5 on the
+     cases of ``tests/ssd_scan_cases.py`` (f32 and bf16)
      and its large-decay case at full width; K1 and K2 bit-equal on the
      cases of ``tests/policy_score_cases.py`` at the admission path's
      shapes and a registry-scale one; K4, through its entry point
@@ -71,7 +83,8 @@ Phases, each printing its numbers on lines of its own:
      the warm-pool forecaster's tick on the card against the NumPy tick:
      gap buckets at every power of two and one below it, decisions
      byte-equal on the reference test's seeded stream and at 4,096 rows;
-  4. time every kernel at its path's full-width shape with S=1024 (K1 and
+  4. time every kernel at its path's full-width shape with S=1024 (K3 also
+     at phi-3-vision's B=4, head_dim 96; K1 and
      K2 at the admission path's F x P and at F=4096, P=1024) beside its
      plain version, its bound on the card and, where one PyTorch call
      computes the same function, that call (SDPA for K3: a yardstick the
@@ -104,24 +117,33 @@ Phases, each printing its numbers on lines of its own:
      same-policy replay true in prov/smoke-tiny, and each report with a
      golden in benchmarks/golden/ without drift against it
      (``benchmarks/scenario_diff.diff_reports``);
-  6. per model: serve 16 requests (prompts of 64-1000 tokens, 32 new tokens
-     each) at full width, bf16, random weights from seed 0, batch 4,
+  6. per served model: serve 16 requests (prompts of 64-1000 tokens, 32 new
+     tokens each) at full width, bf16, random weights from seed 0, batch 4,
      context 1024, with every kernel's launch count set to 0 just before
      and read just after, and each kernel's launches per prefill asserted;
+     peak device memory printed;
   7. per model: hold the prefill's last-token logits through the kernels
-     against the plain route and an f32 run of the same weights;
+     against the plain route and an f32 run of the same weights (mixtral's
+     on its first 4 layers: an f32 copy of 24 does not fit);
   8. qwen3-0.6b and recurrentgemma-9b: K4, through its entry point, on
      every attention layer's cache as the model's own prefill builds it (ragged prompts of 64-1000
      tokens for qwen3, 1000 tokens for the hybrid's unwrapped ring),
      against its plain version and against ``layers.attend``, with K4's
      launch count set to 0 just before and read just after;
-  9. print one line listing every kernel, then the result line.
+  9. phi-3-vision-4.2b and whisper-small through ``model_api``: batch 4 of
+     ``make_batch``, one prefill and 32 greedy decode steps, timed, every
+     kernel's launch count set to 0 just before and read just after (K3 32
+     times for phi-3-vision, every kernel 0 for whisper-small), logits
+     finite, tokens in the vocab, peak memory printed; then phase 7 on the
+     same batch;
+ 10. print one line listing every kernel, then the result line.
 
 Any failed phase raises, so the script exits non-zero and prints no result
 line. Without a visible card it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -140,7 +162,20 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(1, str(ROOT / "tests"))
 
 DEV = "cuda"
-MODELS = ("qwen3-0.6b", "mamba2-2.7b", "recurrentgemma-9b")
+# served through the engine, with the depth cut each takes: mixtral-8x7b's
+# 32 layers are 93.4 GB of bf16 weights, more than the card's 80 GB; 24 of
+# them, every width as published, are 70.2 GB
+MODELS = {"qwen3-0.6b": {}, "mamba2-2.7b": {}, "recurrentgemma-9b": {},
+          "mixtral-8x7b": {"num_layers": 24}}
+# mixtral's logits check (phase 7) runs its three routes on its first layers
+# (the same weights): an f32 copy of 24 layers (135 GB) cannot fit
+MOE_PARITY_LAYERS = 4
+# driven through model_api.prefill and decode_step (the engine feeds token
+# ids only, as the JAX engine does), full depth, batch 4: (make_batch's
+# sequence length, decode steps). phi-3-vision: 576 image + 448 text
+# positions; whisper-small: 64 prompt tokens beside its 1,500 frames.
+API_MODELS = {"phi-3-vision-4.2b": (1024, 32), "whisper-small": (64, 32)}
+API_BATCH = 4
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12            # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
@@ -170,6 +205,10 @@ QWEN_SEQS = (16, 64, 128, 256, 512, 1024)
 # two buckets, and at S=4096, where the window masks
 HYBRID_SEQS = (128, 1024, 4096)
 HYBRID_WINDOW = 2048
+# mixtral-8x7b's attention (H=32, KH=8, D=128, window 4096) at its prefill
+# buckets, qwen3's; phi-3-vision's prefill (B=4, S=1024, H=KH=32, D=96)
+MIXTRAL_WINDOW = 4096
+PHI3_PREFILL = (4, 1024, 32, 32, 96)
 RGLRU_CASES = [                   # tests/test_kernels.py:96-100, + full width
     # (b, s, w)
     (1, 64, 32), (2, 128, 64), (1, 256, 128), (1, 64, 4096), (1, 1024, 4096),
@@ -343,8 +382,9 @@ def _qkv(rng, b, s, h, kh, d, dtype):
 
 
 def check_flash():
-    """Returns the largest bf16 abs error at each path's shapes: (qwen3,
-    D=128; recurrentgemma, D=256)."""
+    """Returns the largest bf16 abs error at each path's shapes: qwen3
+    (D=128), recurrentgemma (D=256), mixtral (D=128, H=32) and phi-3-vision
+    (D=96)."""
     from flash_attention_cases import CARD_CASES, card_inputs
     from repro_torch.kernels import flash_attention as fa
     rng = gen(0)
@@ -353,7 +393,11 @@ def check_flash():
               for s in QWEN_SEQS]
     cases += [((1, s, s, 16, 1, 256, True, HYBRID_WINDOW), "d256")
               for s in HYBRID_SEQS]
-    worst = {"d128": 0.0, "d256": 0.0}
+    cases += [((1, s, s, 32, 8, 128, True, MIXTRAL_WINDOW), "mixtral")
+              for s in QWEN_SEQS]
+    b, s, h, kh, d = PHI3_PREFILL
+    cases += [((b, s, s, h, kh, d, True, None), "d96")]
+    worst = {"d128": 0.0, "d256": 0.0, "mixtral": 0.0, "d96": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for (b, s, t, h, kh, d, causal, window), path in cases:
             if path:
@@ -537,8 +581,9 @@ def decode_bound(b, t, h, kh, d, lengths):
 
 
 def time_flash():
-    """K3 at qwen3's S=1024 and 4096 (D=128) and recurrentgemma's S=1024
-    (D=256, window 2048), by CUDA events over back-to-back calls (host
+    """K3 at qwen3's S=1024 and 4096 (D=128), recurrentgemma's S=1024
+    (D=256, window 2048) and phi-3-vision's prefill (B=4, S=1024, D=96), by
+    CUDA events over back-to-back calls (host
     launch cost included), and K3's and SDPA's device time a call inside a
     CUDA graph."""
     import torch.nn.functional as F
@@ -548,7 +593,8 @@ def time_flash():
     for path, (b, s, h, kh, d, window) in (
             ("d128", (1, 1024, 16, 8, 128, None)),
             ("d128_4096", (1, 4096, 16, 8, 128, None)),
-            ("d256", (1, 1024, 16, 1, 256, HYBRID_WINDOW))):
+            ("d256", (1, 1024, 16, 1, 256, HYBRID_WINDOW)),
+            ("d96", (*PHI3_PREFILL, None))):
         q, k, v = _qkv(rng, b, s, h, kh, d, torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         blk = min(128, s)
@@ -1295,7 +1341,7 @@ def per_prefill(cfg) -> dict:
     asserts that, which shows that no route to it was added."""
     from repro_torch.models import rglru
     n = {name: 0 for name in wrappers()}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         n["flash_attention"] = cfg.num_layers
     elif cfg.family == "ssm":
         n["ssd_scan"] = cfg.num_layers
@@ -1346,35 +1392,68 @@ def serve(cfg, params, n_req: int = 16) -> dict:
     return launches
 
 
-def logits_parity(cfg, params):
-    """Phase 7. Last-token prefill logits of two 1024-token prompts through
-    the kernels, through the plain route (``use_pallas=False``), and
-    through the plain route in f32 weights. The dense family's prompts are
-    right-padded (300 and 1000 tokens: the engine's ragged prefill); the
-    recurrent families read no ``prompt_lens``, so theirs are whole.
+def logits_parity(cfg, params, batch=None):
+    """Phase 7. Last-token prefill logits through the kernels, through the
+    plain route (``use_pallas=False``), and through the plain route in f32
+    weights. The served families take two 1024-token prompts: the dense and
+    MoE families' right-padded (300 and 1000 tokens: the engine's ragged
+    prefill); the recurrent families read no ``prompt_lens``, so theirs are
+    whole. phi-3-vision and whisper-small take ``batch``, their
+    ``make_batch`` batch of phase 9.
 
     Tolerance: both bf16 routes run every layer in bf16 and round at
     different places, so neither equals the f32 run; the kernel route must
     stay as close to it as the plain route does, within 1.5x plus 2**-8 of
-    the largest f32 logit (one bf16 rounding at that scale)."""
+    the largest f32 logit (one bf16 rounding at that scale).
+
+    The MoE family's expert choice is discrete: a bf16 rounding that moves
+    a near-tie of two router probabilities gives that token another
+    expert's whole contribution, in either bf16 route, whatever its
+    attention. So its bf16 routes are held against the f32 run with the
+    f32 run's expert choices replayed (``_routing``), each route's own
+    gates taken at those experts; the unpinned errors and the number of
+    (token, layer) choices each route would have flipped are printed
+    beside them, not held."""
     from repro_torch.models import model_api as api
 
-    rng = gen(6)
-    lens = np.array([300, 1000] if cfg.family == "dense" else [1024, 1024])
-    tokens = np.zeros((2, 1024), np.int64)
-    for i, n in enumerate(lens):
-        tokens[i, :n] = rng.integers(1, cfg.vocab_size, n)
-    batch = {"tokens": torch.from_numpy(tokens).to(DEV)}
-    if cfg.family == "dense":
-        batch["prompt_lens"] = torch.from_numpy(lens).to(DEV)
+    ragged = cfg.family in ("dense", "moe")
+    if batch is None:
+        rng = gen(6)
+        lens = np.array([300, 1000] if ragged else [1024, 1024])
+        tokens = np.zeros((2, 1024), np.int64)
+        for i, n in enumerate(lens):
+            tokens[i, :n] = rng.integers(1, cfg.vocab_size, n)
+        batch = {"tokens": torch.from_numpy(tokens).to(DEV)}
+        if ragged:
+            batch["prompt_lens"] = torch.from_numpy(lens).to(DEV)
+    else:
+        lens = np.full(batch["tokens"].shape[0], batch["tokens"].shape[1])
+    n_rows = len(lens)
     plain_cfg = cfg.replace(use_pallas=False)
+    moe = cfg.family == "moe"
+    choices, routing = [], {}
     with torch.inference_mode():
-        lk = api.prefill(cfg, params, batch, 1024)[0].float()
-        lp = api.prefill(plain_cfg, params, batch, 1024)[0].float()
         p32 = _tree_float(params)
-        lf = api.prefill(plain_cfg, p32, batch, 1024)[0].float()
+        with _routing(moe, choices, "record"):
+            lf = api.prefill(plain_cfg, p32, batch, 1024)[0].float()
         del p32
-    if lk.shape != (2, 1, cfg.vocab_size) or not torch.isfinite(lk).all():
+        if moe:
+            free = {}
+            for label, c in (("kernel", cfg), ("plain", plain_cfg)):
+                flips = []
+                with _routing(moe, choices, "count", flips):
+                    free[label] = float((api.prefill(c, params, batch, 1024)[0]
+                                         .float() - lf).abs().max())
+                routing[f"{label}_flipped_choices"] = sum(flips)
+            routing.update(choices=sum(t[..., 0].numel() for t in choices),
+                           kernel_vs_f32_unpinned=free["kernel"],
+                           plain_vs_f32_unpinned=free["plain"])
+        with _routing(moe, choices, "replay"):
+            lk = api.prefill(cfg, params, batch, 1024)[0].float()
+        with _routing(moe, choices, "replay"):
+            lp = api.prefill(plain_cfg, params, batch, 1024)[0].float()
+    if (lk.shape != (n_rows, 1, cfg.vocab_size)
+            or not torch.isfinite(lk).all()):
         raise AssertionError(f"kernel-route logits: shape {tuple(lk.shape)}"
                              f", finite {bool(torch.isfinite(lk).all())}")
     scale = float(lf.abs().max())
@@ -1385,11 +1464,46 @@ def logits_parity(cfg, params):
         f32_layers=cfg.num_layers, max_abs_f32_logit=scale,
         kernel_vs_f32=err_k, plain_vs_f32=err_p,
         kernel_vs_plain=float((lk - lp).abs().max()), limit=limit,
-        same_argmax=bool((lk.argmax(-1) == lp.argmax(-1)).all()))
+        same_argmax=bool((lk.argmax(-1) == lp.argmax(-1)).all()),
+        **({"routing": "f32 run's experts replayed", **routing}
+           if moe else {}))
     if not err_k <= limit:
         raise AssertionError(f"{cfg.name}: kernel-route logits are {err_k} "
                              f"from the f32 run; the plain route's are "
                              f"{err_p}")
+
+
+@contextlib.contextmanager
+def _routing(on: bool, choices: list, mode: str, flips: list = None):
+    """Around one MoE prefill (``on``): "record" appends each layer's
+    expert choices (top_i) to ``choices``; "count" appends to ``flips`` the
+    number of tokens whose set of experts differs from the recorded one, in
+    call order; "replay" routes every token to the recorded experts, with
+    the gates of the run's own router renormalised over them."""
+    from repro_torch.models import moe
+    if not on:
+        yield
+        return
+    real, calls = moe.route, iter(choices)
+
+    def route(cfg, p, x):
+        probs, top_p, top_i, aux = real(cfg, p, x)
+        if mode == "record":
+            choices.append(top_i)
+            return probs, top_p, top_i, aux
+        want = next(calls)
+        if mode == "count":
+            flips.append(int((top_i.sort(-1).values != want.sort(-1).values)
+                             .any(-1).sum()))
+            return probs, top_p, top_i, aux
+        top_p = probs.gather(-1, want)
+        return probs, top_p / top_p.sum(-1, keepdim=True), want, aux
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = real
 
 
 def cache_parity(cfg, params) -> int:
@@ -1469,25 +1583,121 @@ def _tree_float(tree):
     return tree.float()
 
 
+def _keep_layers(tree, n: int):
+    """Replace every stacked leaf of ``tree`` by a copy of its first ``n``
+    layers, one leaf at a time, so that the card never holds both whole
+    trees (a slice view would keep every layer's storage alive)."""
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            _keep_layers(tree[k], n)
+        else:
+            tree[k] = tree[k][:n].clone()
+
+
 def run_model(arch: str):
-    """Phases 6, 7 and (for the attention families) 8 for one model; frees
-    its weights. Returns the kernel launches of its serving run and K4's
-    launches on its caches."""
+    """Phases 6, 7 and (for the dense and hybrid families) 8 for one model,
+    cut as ``MODELS`` says; frees its weights. Returns the kernel launches
+    of its serving run and K4's launches on its caches."""
     from repro_torch import device as devmod
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model_api as api
+    from repro_torch.models.params import tree_leaves
 
     dev = devmod.resolve(DEV)
-    cfg = get_config(arch).replace(use_pallas=True)
+    cfg = get_config(arch).replace(use_pallas=True, **MODELS[arch])
     params = api.init_params(cfg, devmod.generator(0, dev), dev)
+    say("model", arch=cfg.name, layers=cfg.num_layers,
+        published_layers=get_config(arch).num_layers,
+        param_bytes=sum(t.numel() * t.element_size()
+                        for t in tree_leaves(params)))
     launches = serve(cfg, params)
-    logits_parity(cfg, params)
+    if cfg.family == "moe":
+        gc.collect()
+        _keep_layers(params["layers"], MOE_PARITY_LAYERS)
+        torch.cuda.empty_cache()
+        logits_parity(cfg.replace(num_layers=MOE_PARITY_LAYERS), params)
+    else:
+        logits_parity(cfg, params)
     cache_launches = (cache_parity(cfg, params)
                       if cfg.family in ("dense", "hybrid") else 0)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return launches, cache_launches
+
+
+def run_api_model(arch: str):
+    """Phase 9. One model of ``API_MODELS`` at full width and depth (bf16,
+    random weights from seed 0) through ``model_api``: a ``make_batch``
+    batch of 4 (seed 13), one prefill and greedy ``decode_step``s, timed on
+    the host clock with a synchronize after each call, after one untimed
+    prefill. Every kernel's launch count is set to 0 just before the timed
+    prefill and read after the last step: K3 once a layer in the VLM's
+    prefill, every other kernel 0 (decode runs ``layers.attend``; whisper
+    has no kernel route, in the JAX package as here). Logits finite, tokens
+    in the vocab, then phase 7's check on the same batch. Returns the
+    kernel launches."""
+    import time
+    from repro_torch import device as devmod
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model_api as api
+
+    dev = devmod.resolve(DEV)
+    cfg = get_config(arch).replace(use_pallas=True)
+    seq, steps = API_MODELS[arch]
+    params = api.init_params(cfg, devmod.generator(0, dev), dev)
+    batch = api.make_batch(cfg, InputShape("chip_smoke", seq, API_BATCH,
+                                           "prefill"), gen(13), device=dev)
+    kernels = wrappers()
+    with torch.inference_mode():
+        api.prefill(cfg, params, batch)                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(cfg, params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        tokens, step_s = [], []
+        for _ in range(steps):
+            tok = logits[:, -1].argmax(-1)[:, None]
+            tokens.append(tok)
+            t0 = time.perf_counter()
+            logits, cache = api.decode_step(cfg, params, cache,
+                                            {"token": tok})
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            finite = finite and bool(torch.isfinite(logits).all())
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+    toks = torch.cat(tokens, dim=1)
+    want = per_prefill(cfg)
+    say("model_api", arch=cfg.name, layers=cfg.num_layers, batch=API_BATCH,
+        seq=int(seq), text_tokens=int(batch["tokens"].shape[1]),
+        prefill_ms=prefill_s * 1e3, decode_steps=steps,
+        decode_ms_per_step=float(np.median(step_s)) * 1e3,
+        decode_ms_per_step_mean=float(np.mean(step_s)) * 1e3,
+        decode_tokens_per_s=API_BATCH * steps / sum(step_s),
+        max_memory_allocated_bytes=peak,
+        first_tokens=toks[:, :8].tolist(), launches=launches,
+        launches_per_prefill=want, finite=finite)
+    if logits.shape != (API_BATCH, 1, cfg.vocab_size) or not finite:
+        raise AssertionError(f"{cfg.name}: logits {tuple(logits.shape)}, "
+                             f"finite {finite}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: a token id is out of the vocab")
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: kernel launches {launches}; want "
+                             f"{want} (one prefill)")
+    del cache, logits
+    logits_parity(cfg, params, batch)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1522,6 +1732,8 @@ def main() -> int:
     for arch in MODELS:
         launches[arch], n = run_model(arch)
         cache_launches += n
+    for arch in API_MODELS:
+        launches[arch] = run_api_model(arch)
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",
@@ -1532,18 +1744,29 @@ def main() -> int:
                 "library_ms": t["library_ms"]}
 
     print(json.dumps({"kernels": [
-        # K3 at qwen3's S=1024; the same at S=4096 beside it
+        # K3 at qwen3's S=1024; the same at S=4096 beside it, and
+        # mixtral-8x7b's launches (24 layers) and errors at its buckets
         dict(entry("flash_attention", "flash_attention",
                    "src/repro/kernels/flash_attention.py:80",
                    launches["qwen3-0.6b"]["flash_attention"], err_fa["d128"],
                    t_fa["d128"]),
              graph_device_ms=t_fa["d128"]["graph_device_ms"],
-             s4096=t_fa["d128_4096"]),
+             s4096=t_fa["d128_4096"],
+             mixtral=dict(
+                 launches=launches["mixtral-8x7b"]["flash_attention"],
+                 max_abs_err=err_fa["mixtral"])),
         dict(entry("flash_attention_d256", "flash_attention",
                    "src/repro/kernels/flash_attention.py:80",
                    launches["recurrentgemma-9b"]["flash_attention"],
                    err_fa["d256"], t_fa["d256"]),
              graph_device_ms=t_fa["d256"]["graph_device_ms"]),
+        # phi-3-vision's prefill, B=4, S=1024, head_dim 96
+        dict(entry("flash_attention_d96", "flash_attention",
+                   "src/repro/kernels/flash_attention.py:80",
+                   launches["phi-3-vision-4.2b"]["flash_attention"],
+                   err_fa["d96"], t_fa["d96"]),
+             graph_device_ms=t_fa["d96"]["graph_device_ms"],
+             shape=list(PHI3_PREFILL)),
         # at S=1024; the serving buckets 256/512/768 beside it. "launches"
         # counts wrapper calls; each bf16 call runs kernels_per_call kernels
         dict(entry("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:75",

@@ -108,7 +108,7 @@ def _sentiment_fns(device: torch.device, params: Optional[Dict] = None):
 
     def body(token_ids: torch.Tensor) -> torch.Tensor:
         emb = params["embed"][token_ids[None]]
-        h, _ = tfm.forward_hidden(cfg, params, emb)
+        h, _, _ = tfm.forward_hidden(cfg, params, emb)
         return torch.softmax(h[:, -1, :2], dim=-1)
 
     return body

@@ -14,7 +14,7 @@
 // makes a NaN.
 //
 // What bounds it on the H100: at the prefill shapes of the serving path
-// (Sq = T <= 4096, D = 128 or 256) a block reads its q tile once and streams
+// (Sq = T <= 4096, D = 96, 128 or 256) a block reads its q tile once and streams
 // the k/v tiles of its range, so the bytes are ~ (q + k + v + o) and the work
 // is ~4*D flops per unmasked (query, key) pair: the function is bound by
 // operations, at the bf16 tensor-core rate.
@@ -27,9 +27,16 @@
 //     consumer's warps release); k and v are described as the 4-D tensors
 //     (B, T, KH, D) they are, so TMA zero-fills past T and no box crosses
 //     into the next batch row. q is read once, with 16-byte loads.
-//   * S = q . k^T is a wgmma from shared memory (both K-major, 128-byte
-//     swizzle, 64-byte at D=32) on the unscaled bf16 q; the f32 scores are
-//     scaled after the product (q.k of bf16 values is exact in f32 products).
+//   * Rows of q, k and v are cut into swizzled chunks: 64 columns (128-byte
+//     swizzle) where 64 divides D, else 32 columns (64-byte swizzle). D=96
+//     (phi-3-vision) is 1.5 128-byte atoms wide, so it takes three 32-column
+//     chunks, TMA boxes of {32, 1, 64, 1} and three N=32 P.V products a
+//     k-step: no column is padded, so no work is wasted. (The other way, two
+//     64-column chunks with TMA zero-filling columns 96-127, would cost a
+//     third more products and need zero-filled q loads.)
+//   * S = q . k^T is a wgmma from shared memory (both K-major) on the
+//     unscaled bf16 q; the f32 scores are scaled after the product (q.k of
+//     bf16 values is exact in f32 products).
 //   * The softmax runs on the accumulator's own fragment: a thread holds two
 //     rows, the 4 lanes of a quad share them (shuffles 1 and 2). Only tiles
 //     that cross the diagonal, the window's edge or T are masked.
@@ -42,14 +49,16 @@
 //     split, it stays within 0.89 of it. l sums the unrounded f32 p.
 //   * Registers: at D=256 the 64 x 256 f32 accumulator is 128 a thread, and
 //     160 KB of shared memory leave one block per SM; at D <= 128 two blocks
-//     share an SM, so one's softmax overlaps the other's products.
+//     share an SM, so one's softmax overlaps the other's products (D=96:
+//     61 KB a block).
 //   * Blocks of the longest causal range launch first.
 // f32: flash_fwd, IEEE fmaf on the CUDA cores (no TF32, by design: the f32
 //   cases hold 2e-5). One block owns 64 rows and streams 64-key tiles of k
 //   and v through shared memory as f32; the block's threads form 16 row
 //   groups x CG column groups, each thread a 4 x 64/CG score micro-tile and
 //   a 4 x D/CG output micro-tile, on padded strides. D <= 128 runs 128
-//   threads (CG = 8), D = 256 256 threads (CG = 16).
+//   threads (CG = 8; D = 96: 12 output columns a thread), D = 256 256
+//   threads (CG = 16).
 // Ragged edges (Sq or T not a multiple of a tile) are masked, not asserted
 // away.
 #include "hopper.cuh"
@@ -247,9 +256,12 @@ __global__ void __launch_bounds__(16 * CG, 1)
 
 template <int D>
 struct Tc {
-  static constexpr int CW = D < 64 ? D : 64;  // columns of one swizzled chunk
+  // columns of one swizzled chunk: 64, or 32 where 64 does not divide D
+  // (D = 32, and D = 96 in three chunks)
+  static constexpr int CW = D % 64 == 0 ? 64 : 32;
   static constexpr int ROWB = CW * 2;         // its row: 128 (or 64) bytes
   static constexpr int NCH = D / CW;          // chunks across a row
+  static_assert(NCH * CW == D, "a row is a whole number of chunks");
   static constexpr int Q_CHUNK = kRows * ROWB;
   static constexpr int KV_CHUNK = kKv * ROWB;
   static constexpr int KV_TILE = NCH * KV_CHUNK;  // one k or v tile, bytes
@@ -586,6 +598,9 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                              window, scale, s);
     case 64:
       return (int)launch<64>(q, k, v, o, B, Sq, Tk, H, KH, is_bf16, causal,
+                             window, scale, s);
+    case 96:
+      return (int)launch<96>(q, k, v, o, B, Sq, Tk, H, KH, is_bf16, causal,
                              window, scale, s);
     case 128:
       return (int)launch<128>(q, k, v, o, B, Sq, Tk, H, KH, is_bf16, causal,

@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)   # the kernel's template instances
+HEAD_DIMS = (32, 64, 96, 128, 256)   # the kernel's template instances
 MAX_GROUP = 64              # q heads per kv head that fit its 64-row q tile
 
 

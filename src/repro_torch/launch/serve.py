@@ -8,14 +8,19 @@ port, on the CUDA card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b
 
-The dense (qwen3, yi, llama3), SSM (mamba2-2.7b) and hybrid
-(recurrentgemma-9b) families are served; the others raise
-``NotImplementedError``. Like the JAX launcher it serves ``cfg.reduced()``
-unless ``--full`` is given. Prefill takes the port's kernel route
-(``cfg.use_pallas``: flash attention, the SSD scan, the RG-LRU scan): the
-CUDA kernels on the card, their plain PyTorch versions on the CPU. Weights
-are random, drawn from ``--seed`` with an explicit generator.
+The dense (qwen3, yi, llama3), MoE (mixtral-8x7b, dbrx-132b), SSM
+(mamba2-2.7b) and hybrid (recurrentgemma-9b) families are served. The
+engine feeds token ids only, as the JAX engine does, so the VLM
+(phi-3-vision) and encoder-decoder (whisper-small) archs, whose prefill
+also reads image embeddings or audio frames, exit with status 2 and a
+message; they run through ``models.model_api.prefill``/``decode_step``
+(``chip_smoke.py`` drives them so). Like the JAX launcher it serves
+``cfg.reduced()`` unless ``--full`` is given. Prefill takes the port's
+kernel route (``cfg.use_pallas``: flash attention, the SSD scan, the RG-LRU
+scan): the CUDA kernels on the card, their plain PyTorch versions on the
+CPU. Weights are random, drawn from ``--seed`` with an explicit generator.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.configs.base import ENCDEC, VLM
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.models import model_api as api
 from repro_torch.serving.engine import Request, ServingEngine
@@ -82,12 +88,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="serve the full-width config, not cfg.reduced()")
     args = ap.parse_args(argv)
 
+    cfg = get_config(args.arch)
+    if cfg.family in (VLM, ENCDEC):
+        print(f"error: {args.arch} ({cfg.family}) reads "
+              f"{'image embeddings' if cfg.family == VLM else 'audio frames'}"
+              f" beside its tokens, and the serving engine feeds token ids "
+              f"only, as the JAX package's does; drive it through "
+              f"repro_torch.models.model_api.prefill and decode_step",
+              file=sys.stderr)
+        return 2
     try:
         dev = devmod.resolve(args.device)
     except devmod.NoCudaDevice as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    cfg = get_config(args.arch)
     cfg = cfg if args.full else cfg.reduced()
     cfg = cfg.replace(use_pallas=True)
     params = api.init_params(cfg, devmod.generator(args.seed, dev), dev)

@@ -1,7 +1,7 @@
 """Unified model API of the port, dispatched on ``cfg.family`` as in the JAX
-package's ``models/model_api.py``. The dense, hybrid (rglru) and SSM
-(mamba2) families are wired; MoE, VLM and encoder-decoder raise
-``NotImplementedError`` (ROADMAP.md, Queue 1).
+package's ``models/model_api.py``: every family of the JAX package is wired
+(dense, MoE and VLM through ``transformer``, the hybrid through ``rglru``,
+the SSM through ``mamba2``, encoder-decoder through ``whisper``).
 
   model_specs(cfg)                       -> Spec tree
   init_params(cfg, generator, device)    -> materialized params
@@ -9,29 +9,33 @@ package's ``models/model_api.py``. The dense, hybrid (rglru) and SSM
   prefill(cfg, params, batch)            -> (logits, cache)
   decode_step(cfg, params, cache, batch) -> (logits, cache)
   cache_specs / init_cache
+  make_batch(cfg, shape, rng, device)    -> concrete batch
+
+The serving engine feeds ``tokens`` and ``prompt_lens`` only, as the JAX
+engine does, so it serves the dense, MoE, hybrid and SSM families; the VLM
+(``image_embeds``) and encoder-decoder (``frames``) families run through
+``prefill``/``decode_step`` with a ``make_batch`` batch.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
+from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
+                                      InputShape, ModelConfig)
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import params as pm
-from repro_torch.models import mamba2, rglru
+from repro_torch.models import mamba2, rglru, whisper
 from repro_torch.models import transformer as tfm
 
-_FAMILY_MODULES = {DENSE: tfm, HYBRID: rglru, SSM: mamba2}
+_FAMILY_MODULES = {DENSE: tfm, MOE: tfm, VLM: tfm, HYBRID: rglru,
+                   SSM: mamba2, ENCDEC: whisper}
 
 
 def _mod(cfg: ModelConfig):
-    mod = _FAMILY_MODULES.get(cfg.family)
-    if mod is None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port serves the "
-            f"{sorted(_FAMILY_MODULES)} families (see ROADMAP.md, Queue 1)")
-    return mod
+    return _FAMILY_MODULES[cfg.family]
 
 
 def model_specs(cfg: ModelConfig):
@@ -67,3 +71,45 @@ def init_cache(cfg: ModelConfig, batch_size: int, context_len: int,
                device: DeviceLike = None):
     return _mod(cfg).init_cache(cfg, batch_size, context_len,
                                 device=resolve(device))
+
+
+# ------------------------------------------------------------- inputs ------
+def _text_len(cfg: ModelConfig, seq_len: int) -> int:
+    return seq_len - cfg.n_img_tokens if cfg.family == VLM else seq_len
+
+
+def make_batch(cfg: ModelConfig, shape: InputShape,
+               rng: Optional[np.random.Generator] = None,
+               batch: Optional[int] = None, seq: Optional[int] = None,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A concrete random batch, drawn from the numpy ``rng`` in the JAX
+    package's order (the same seed gives the same values there): token ids
+    (int64 here, int32 there), for a VLM the ``image_embeds`` (B,
+    n_img_tokens, d_model) in front of ``seq - n_img_tokens`` text tokens,
+    for encoder-decoder the ``frames`` (B, n_enc_frames, d_model), both
+    ``normal * 0.02`` in bf16; on ``device`` (the card unless the caller
+    asks for the CPU)."""
+    dev = resolve(device)
+    rng = rng if rng is not None else np.random.default_rng(0)
+    b = batch or shape.global_batch
+    s = _text_len(cfg, seq or shape.seq_len)
+
+    def ids(shape_):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape_)).to(
+            device=dev, dtype=torch.int64)
+
+    def embeds(n):
+        x = rng.normal(size=(b, n, cfg.d_model)) * 0.02
+        return torch.from_numpy(x).to(device=dev, dtype=torch.bfloat16)
+
+    if shape.kind == "decode":
+        return {"token": ids((b, 1))}
+    out = {"tokens": ids((b, s))}
+    if shape.kind == "train":
+        out["labels"] = ids((b, s))
+        out["mask"] = torch.ones((b, s), dtype=torch.float32, device=dev)
+    if cfg.family == VLM:
+        out["image_embeds"] = embeds(cfg.n_img_tokens)
+    if cfg.family == ENCDEC:
+        out["frames"] = embeds(cfg.n_enc_frames)
+    return out

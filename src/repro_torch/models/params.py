@@ -18,7 +18,7 @@ class Spec(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
     init: str = "normal"        # normal | zeros | ones | lru_a | ssm_a |
-                                # ssm_dt (| pos: whisper, not ported)
+                                # ssm_dt | pos
     scale: float = 1.0          # multiplier on fan-in-scaled normal
 
 
@@ -61,6 +61,10 @@ _UNIFORM = {
 }
 
 
+# the most elements a leaf draws in one f32 tensor (8 GiB)
+_ONE_DRAW = 2 ** 31
+
+
 def _init_leaf(s: Spec, generator: torch.Generator, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
     if s.init == "zeros":
@@ -73,16 +77,28 @@ def _init_leaf(s: Spec, generator: torch.Generator, dtype: torch.dtype,
         u = torch.rand(s.shape, generator=generator, dtype=torch.float32,
                        device=generator.device) * (hi - lo) + lo
         return transform(u).to(device=device, dtype=dtype)
-    if s.init != "normal":
-        raise NotImplementedError(
-            f"initializer {s.init!r} belongs to a model family the port has "
-            f"not reached yet (see ROADMAP.md, Queue 1)")
-    # fan-in scaled normal, drawn in f32 and then cast, as the JAX package
-    fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
-    std = s.scale / math.sqrt(max(fan_in, 1))
-    x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (std * x).to(device=device, dtype=dtype)
+    if s.init == "pos":
+        # learned positional embeddings (whisper's encoder): a small normal
+        std = 0.02
+    elif s.init == "normal":
+        # fan-in scaled normal, drawn in f32 and then cast, as the JAX package
+        fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+        std = s.scale / math.sqrt(max(fan_in, 1))
+    else:
+        raise ValueError(f"unknown initializer {s.init!r}")
+    if math.prod(s.shape) <= _ONE_DRAW:
+        x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (std * x).to(device=device, dtype=dtype)
+    # a leaf whose f32 draw would not fit beside the model on the card
+    # (mixtral-8x7b's stacked experts: 45 GB in f32) is drawn one slice of
+    # its leading axis at a time
+    out = torch.empty(s.shape, dtype=dtype, device=device)
+    for i in range(s.shape[0]):
+        x = torch.randn(s.shape[1:], generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        out[i] = (std * x).to(device=device, dtype=dtype)
+    return out
 
 
 def init(tree, generator: torch.Generator, dtype=torch.bfloat16,

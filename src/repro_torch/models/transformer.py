@@ -1,16 +1,21 @@
-"""Decoder-only dense transformer (qwen3 / yi / llama3), ported from the JAX
-package's ``models/transformer.py``.
+"""Decoder-only transformer families: dense (qwen3 / yi / llama3), MoE
+(mixtral / dbrx) and VLM (the phi-3-vision backbone, whose image frontend is
+a stub: precomputed image embeddings go in front of the token embeddings),
+ported from the JAX package's ``models/transformer.py``.
 
 Parameters keep the stacked leading ``layers`` dimension of the JAX tree; the
 layer stack is a Python loop over it where the JAX package runs
-``lax.scan``. Decode uses a full-length KV cache, position-mask based. With
+``lax.scan``. Decode uses either a full-length KV cache or a rolling window
+buffer (sliding-window archs), both position-mask based. With
 ``cfg.use_pallas`` prefill attention runs the port's hand-written flash
 attention kernel (``kernels/ops.flash_attention``); otherwise it runs
 ``layers.chunked_attention``. Decode attention is ``layers.attend`` either
-way, as in the JAX package.
+way, as in the JAX package. The MoE family's feed-forward is
+``moe.moe_block``; its load-balancing loss is summed by ``forward_hidden``
+and ignored by ``prefill`` and ``decode_step``.
 
-The MoE and VLM families, and the JAX package's shard_map flash decode over
-a sequence-sharded cache, are not ported yet (ROADMAP.md, Queue 1).
+The JAX package's shard_map flash decode over a sequence-sharded cache needs
+a device mesh and is not ported yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -18,17 +23,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import MOE, VLM, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as nn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import Spec, stack, tree_index
-
-
-def _dense_only(cfg: ModelConfig):
-    if cfg.family != DENSE:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port's "
-            f"transformer serves the dense family (see ROADMAP.md, Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -60,13 +59,16 @@ def mlp_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _dense_only(cfg)
-    return {
+    out = {
         "ln1": Spec((cfg.d_model,), ("embed",), "zeros"),
         "ln2": Spec((cfg.d_model,), ("embed",), "zeros"),
         "attn": attn_specs(cfg),
-        "mlp": mlp_specs(cfg),
     }
+    if cfg.family == MOE:
+        out["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        out["mlp"] = mlp_specs(cfg)
+    return out
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -126,9 +128,15 @@ def attn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     return x + out, (k, v)
 
 
-def ffn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+def ffn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor):
+    """Returns (x + ffn(x), aux loss): the MoE block's load-balancing loss,
+    or 0.0 (a Python float: no launch on the card) for the dense MLP."""
     h = nn.rmsnorm(x, p["ln2"])
-    return x + nn.gated_mlp(h, **p["mlp"])
+    if cfg.family == MOE:
+        out, aux = moe_mod.moe_block(cfg, p["moe"], h)
+    else:
+        out, aux = nn.gated_mlp(h, **p["mlp"]), 0.0
+    return x + out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -137,27 +145,33 @@ def ffn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
-    _dense_only(cfg)
-    return params["embed"][batch["tokens"]]
+    tok = params["embed"][batch["tokens"]]
+    if cfg.family == VLM:
+        img = batch["image_embeds"].to(tok.dtype)          # (B, Nimg, D)
+        tok = torch.cat([img, tok], dim=1)
+    return tok
 
 
 def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
                    collect_kv: bool = False):
-    """Run the layer stack. Returns (hidden, (k_stack, v_stack) | None), the
-    stacks (L,B,S,KH,Dh)."""
+    """Run the layer stack. Returns (hidden, (k_stack, v_stack) | None,
+    aux_loss), the stacks (L,B,S,KH,Dh), the aux loss the sum of the MoE
+    layers' (an f32 scalar tensor; 0.0 for the other families)."""
     s = embeds.shape[1]
     positions = torch.arange(s, device=embeds.device)
     x, ks, vs = embeds, [], []
+    aux = 0.0
     for i in range(cfg.num_layers):
         p = tree_index(params["layers"], i)
         x, (k, v) = attn_block(cfg, p, x, positions)
-        x = ffn_block(cfg, p, x)
+        x, a = ffn_block(cfg, p, x)
+        aux = aux + a
         if collect_kv:
             ks.append(k)
             vs.append(v)
     x = nn.rmsnorm(x, params["final_norm"])
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return x, kvs
+    return x, kvs, aux
 
 
 def logits_fn(cfg: ModelConfig, params: Dict, h: torch.Tensor) -> torch.Tensor:
@@ -239,8 +253,8 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
     lens = (torch.full((b,), s, dtype=torch.int32, device=dev)
             if raw_lens is None else raw_lens.to(device=dev,
                                                  dtype=torch.int32))
-    h, (k_stack, v_stack) = forward_hidden(cfg, params, embeds,
-                                           collect_kv=True)
+    h, (k_stack, v_stack), _ = forward_hidden(cfg, params, embeds,
+                                              collect_kv=True)
     cache = init_cache(cfg, b, context_len, device=dev)
     cap = cache["k"].shape[2]
     if raw_lens is None:
@@ -303,7 +317,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
         ctx = nn.attend(q, kc, vc, positions, k_pos, causal=True,
                         window=cfg.sliding_window)
         x = x + _matmul(ctx.reshape(b, 1, cfg.q_dim), p["attn"]["wo"])
-        x = ffn_block(cfg, p, x)
+        x, _ = ffn_block(cfg, p, x)
     x = nn.rmsnorm(x, params["final_norm"])
     logits = logits_fn(cfg, params, x)
     new_cache = dict(cache)

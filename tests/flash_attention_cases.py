@@ -41,6 +41,17 @@ CARD_CASES = [
     (1, 1, 1, 16, 1, 256, True, 2048),
     (1, 100, 300, 16, 8, 128, False, None),
     (1, 300, 100, 8, 2, 128, True, None),
+    # head_dim 96, three 32-column chunks a row: phi-3-vision's prefill (H =
+    # KH = 32, S = 576 image + 448 text positions); a ragged S; B=2 at a T
+    # no tile divides; groups of 4; fewer keys than queries without the
+    # causal mask
+    (1, 1024, 1024, 32, 32, 96, True, None),
+    (1, 200, 200, 32, 32, 96, True, None),
+    (2, 100, 100, 8, 8, 96, True, None),
+    (1, 256, 256, 16, 4, 96, True, None),
+    (1, 300, 100, 8, 2, 96, False, None),
+    # mixtral-8x7b's grouping (H=32, KH=8, D=128) under a window that masks
+    (1, 1024, 1024, 32, 8, 128, True, 256),
 ]
 
 

@@ -94,6 +94,62 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
+def test_flash_attention_kernel_takes_head_dim_96(cuda_device):
+    """head_dim 96 (phi-3-vision) has an instance; 80 has none and raises."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, 64, 4, 96, device=cuda_device, dtype=dtype)
+        out = fa.flash_attention_cuda(q, q, q)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    q = torch.zeros(1, 64, 4, 80, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_cuda(q, q, q)
+
+
+# the families of this slice at reduced width: (arch, config overrides, K3
+# launches a prefill, dtypes). The MoE models run in f32 only: in bf16 the
+# two routes' roundings may move a router near-tie to another expert
+# (chip_smoke.py's phase 7 replays the experts for that reason)
+FAMILY_CASES = [("mixtral-8x7b", {}, 2, ["f32"]),
+                ("dbrx-132b", {}, 2, ["f32"]),
+                ("phi-3-vision-4.2b", {"head_dim": 96}, 2, ["f32", "bf16"]),
+                ("whisper-small", {}, 0, ["f32", "bf16"])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,overrides,k3,dtype", [
+    (a, o, k, d) for a, o, k, ds in FAMILY_CASES for d in ds])
+def test_family_prefill_kernel_route_matches_plain(cuda_device, arch,
+                                                   overrides, k3, dtype):
+    """Reduced-width MoE, VLM (head_dim 96) and whisper prefill on the card
+    through the kernel route (K3 once a layer; whisper has no kernel route)
+    against the plain route on the same weights and batch: f32 at 2e-5 abs
+    and rel, bf16 at 2**-5 of the largest plain logit (tests/
+    test_torch_model.py's bf16 tolerance)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model_api as api
+    from repro_torch.models import params as pm
+    cfg = get_config(arch).reduced().replace(use_pallas=True, **overrides)
+    params = pm.init(api.model_specs(cfg),
+                     torch.Generator(device=cuda_device).manual_seed(0),
+                     TORCH[dtype], cuda_device)
+    batch = api.make_batch(cfg, InputShape("card", 128, 2, "prefill"),
+                           np.random.default_rng(0), device=cuda_device)
+    before = fa.flash_attention_cuda.launches
+    got, _ = api.prefill(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + k3
+    want, _ = api.prefill(cfg.replace(use_pallas=False), params, batch)
+    assert bool(torch.isfinite(got).all())
+    if dtype == "f32":
+        tol = dict(atol=2e-5, rtol=2e-5)
+    else:
+        tol = dict(atol=2 ** -5 * float(want.float().abs().max()), rtol=0)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("case", list(CASES) + list(SERVING))
 def test_decode_attention_kernel_matches_plain(cuda_device, dtype, case):

@@ -21,6 +21,12 @@ The recurrent families do not read ``prompt_lens`` in prefill, in the JAX
 package as in the port: the engine's pad tokens run through the recurrence,
 the first token comes from the last pad position and decoding starts at the
 bucket length. The tests pin that, on prompts whose lengths are not buckets.
+
+The MoE family (reduced mixtral-8x7b) is served as the dense one is. Its
+pad tokens are routed like any token and take capacity, in the JAX engine
+as in the port: a group's capacity follows the padded bucket, not the
+prompt. The test runs at capacity_factor 1.0, where prefill drops choices,
+so the two engines agree only if they drop the same ones.
 """
 import pytest
 
@@ -101,7 +107,7 @@ def test_engine_continuous_batching_and_consistency(port_params, use_pallas):
     for expect in r.out_tokens:
         batch = {"tokens": torch.tensor([toks], dtype=torch.int64)}
         emb = ttfm.embed_inputs(cfg, port_params, batch)
-        h, _ = ttfm.forward_hidden(cfg, port_params, emb)
+        h, _, _ = ttfm.forward_hidden(cfg, port_params, emb)
         logits = ttfm.logits_fn(cfg, port_params, h[:, -1:, :])
         assert int(torch.argmax(logits[0, -1])) == expect
         toks.append(expect)
@@ -226,3 +232,61 @@ def test_recurrent_engine_batch_equals_stacked_layers(name, layers):
             logits = ttfm.logits_fn(cfg, params, h[:, -1:, :])
             assert int(torch.argmax(logits[0, -1])) == expect, r.rid
             seq.append(expect)
+
+
+# ---------------------------------------------------------------------------
+# The MoE family
+# ---------------------------------------------------------------------------
+
+MOE_CF = 1.0      # the reduced config's 8.0 never drops a choice; 1.0 does
+
+
+def _moe_cfgs():
+    return tuple(r.get_config("mixtral-8x7b").reduced().replace(
+        capacity_factor=MOE_CF) for r in (jreg, treg))
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    jcfg, tcfg = _moe_cfgs()
+    jp = japi.init_params(jcfg, jax.random.PRNGKey(0))
+    return jp, params_from_numpy(tcfg, jax.tree_util.tree_map(np.asarray, jp),
+                                 device="cpu")
+
+
+def test_moe_engine_parity_with_jax_engine(moe_models):
+    """Prompts of 10 and 23 tokens (buckets 16 and 32): both engines start
+    decoding at the prompt length and give the same first token; the JAX
+    engine's tokens, fed through the port, give the JAX logits at every
+    step. The bucket's pad tokens take capacity: prefilling the bare prompt
+    instead (the capacity of 10 tokens, not 16) moves the logits by more
+    than the parity's tolerance (they are equal bit for bit where nothing
+    drops), so the parity would catch a port that left them out."""
+    from repro_torch.models import moe as tmoe
+    jcfg, tcfg = _moe_cfgs()
+    jp, tp = moe_models
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 512, n).astype(np.int32) for n in (10, 23)]
+    jreqs = [jeng.Request(rid=i, prompt=p, max_new_tokens=5)
+             for i, p in enumerate(prompts)]
+    treqs = [Request(rid=i, prompt=p, max_new_tokens=5)
+             for i, p in enumerate(prompts)]
+    jeng.ServingEngine(jcfg, jp, batch_size=2, max_context=64).run(jreqs)
+    teng = ServingEngine(tcfg, tp, batch_size=2, max_context=64)
+    teng.run(treqs)
+    assert all(r.done and len(r.out_tokens) == 5 for r in jreqs + treqs)
+    assert [r.out_tokens[0] for r in treqs] == [r.out_tokens[0]
+                                                for r in jreqs]
+    compared = _teacher_forced(jcfg, tcfg, jp, tp, jreqs, 64)
+    assert compared >= len(jreqs)     # not every step a near-tie
+
+    assert tmoe._capacity(tcfg, 16) > tmoe._capacity(tcfg, 10)
+    padded = np.zeros((1, 16), np.int64)
+    padded[0, :10] = prompts[0]
+    lp, _ = tapi.prefill(tcfg, tp, {
+        "tokens": torch.from_numpy(padded),
+        "prompt_lens": torch.tensor([10], dtype=torch.int32)}, 64)
+    lb, _ = tapi.prefill(tcfg, tp, {
+        "tokens": torch.from_numpy(padded[:, :10])}, 64)
+    gap = float((lp.float() - lb.float()).abs().max())
+    assert gap > 2 ** -5 * float(lp.float().abs().max())   # not rounding

@@ -41,7 +41,7 @@ def test_every_module_imports_without_jax_or_repro():
                  "autoscale.controller", "obs.recorder", "obs.analysis",
                  "obs.export", "obs.telemetry", "obs.alerts",
                  "obs.provenance", "obs.whatif", "launch.bench_autoscale",
-                 "launch.explain"):
+                 "launch.explain", "models.moe", "models.whisper"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -74,6 +74,16 @@ def test_serve_launcher_names_the_missing_card():
                 "sys.exit(serve.main(['--requests', '1']))\n")
     assert proc.returncode != 0
     assert "no CUDA card" in proc.stderr
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "whisper-small"])
+def test_serve_launcher_refuses_what_the_engine_cannot_feed(arch, capsys):
+    """The engine feeds token ids only (as the JAX engine does): the VLM
+    and encoder-decoder archs exit 2 with a message, card or no card."""
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", arch, "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "token ids only" in err and "model_api" in err
 
 
 def test_batch_scheduling_launcher_names_the_missing_card():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA card: the FDN
-admission path, the Inspector's scenarios, the serving paths and the split-K
-decode attention entry point.
+admission path, the Inspector's scenarios, the serving paths, the split-K
+decode attention entry point and the training path.
 
     python3 chip_smoke.py
 
@@ -54,6 +54,12 @@ Split-K decode attention (``kernels/ops.decode_attention``, the kernel
 calls, in the JAX package as in the port: decode runs ``layers.attend``. Its
 own path is held on the caches that qwen3-0.6b's and recurrentgemma-9b's
 prefill build, and it must launch 0 times while they serve.
+
+The training path (``repro_torch.launch.train.train_loop``, the loop of the
+trainer entry point) trains qwen3-0.6b at full width and depth on the plain
+routes with autograd's backward, as the JAX package trains through plain
+``jnp``: no kernel runs there, and a kernel entry point raises under
+autograd.
 
 Phases, each printing its numbers on lines of its own:
 
@@ -136,7 +142,21 @@ Phases, each printing its numbers on lines of its own:
      times for phi-3-vision, every kernel 0 for whisper-small), logits
      finite, tokens in the vocab, peak memory printed; then phase 7 on the
      same batch;
- 10. print one line listing every kernel, then the result line.
+ 10. train (``[train]``): qwen3-0.6b, 28 layers at full width, random bf16
+     weights from seed 0, ``TokenStream`` batches of 8 x 4096 tokens (the
+     batch cut from TRAIN_4K's 256 for one card) as 4 microbatches of 2,
+     remat "dots", AdamW (lr 1e-3, 5 warmup steps of 6), under
+     deterministic algorithms: steps 1-3 with an async checkpoint at step
+     3, restored into fresh tensors on the card and held bit-equal to the
+     trained state; steps 4-6; every kernel's launch count set to 0 just
+     before step 1 and read after step 6 (all 0); each step's loss, lr,
+     grad norm and ms, tokens/s and peak memory printed; the losses finite
+     and falling; one step under remat "full" for its peak beside
+     "dots"'s; a step with ``use_pallas`` raises before launching; steps
+     4-6 again from the checkpoint, their losses equal to the
+     uninterrupted run's; then reduced qwen3 in f32, one step on the card
+     against the same step on the CPU (``[train_cpu]``);
+ 11. print one line listing every kernel, then the result line.
 
 Any failed phase raises, so the script exits non-zero and prints no result
 line. Without a visible card it exits non-zero at once.
@@ -146,6 +166,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1700,6 +1721,244 @@ def run_api_model(arch: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: train
+# ---------------------------------------------------------------------------
+
+# qwen3-0.6b at full width and depth, trained at TRAIN_4K's sequence length
+# (4096) on a batch cut from its 256 rows to 8 for one card, remat "dots",
+# AdamW warming up over 5 of 6 steps. The batch runs as 4 microbatches of 2
+# rows: with 2 of 4, the f32 logits' log-sum-exp and its backward (about
+# 10 GB each a microbatch of 4 x 4096 x 151,936) took the card past 72 GB
+# in use, and the second step ran out of memory
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES = 4096, 8, 4
+TRAIN_STEPS, TRAIN_SAVE_AT = 6, 3
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=6)
+# the resumed steps' losses against the uninterrupted run's: both run the
+# same kernels on the same inputs under deterministic algorithms, so they
+# must be bit-equal (limit 0)
+TRAIN_RESUME_LIMIT = 0.0
+# reduced qwen3-0.6b in f32, one step (batch 2 x 128 tokens) on the card
+# against the same step on the CPU. Loss 2e-5 rel: only the order of f32
+# sums differs (a TF32 product would move it by ~1e-4). Parameters, as
+# tests/test_torch_train_steps.py holds the port against the JAX package:
+# every element within 2e-5 rel + 2.1 lr (where a gradient is near eps or
+# its sign differs, an AdamW step moves up to 2 lr apart), 99.9% of them
+# within 1e-6 rel + 1e-3 lr.
+TRAIN_CPU_TOL = dict(loss=2e-5, hard=(2e-5, 2.1), tight=(1e-6, 1e-3),
+                     share=0.999)
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.models.params import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _trees_equal(a, b) -> bool:
+    from repro_torch.models.params import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def train_on_cpu_and_card():
+    """One f32 step of reduced qwen3-0.6b on the card and on the CPU, from
+    the same parameters and batch; returns the comparison's numbers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import model_api as api
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(TRAIN_ARCH).reduced()
+    oc = opt.OptConfig(**TRAIN_OPT)
+    params = tree_map(lambda t: t.float(), api.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    raw = TokenStream(DataConfig(cfg.vocab_size, 128, 2,
+                                 mean_doc_len=32)).batch(0)
+    out = {}
+    for dev in ("cpu", DEV):
+        p = tree_map(lambda t: t.to(dev), params)
+        state = opt.init_state(oc, api.model_specs(cfg), dev)
+        new, _, m = make_train_step(cfg, oc)(p, state,
+                                             batch_to_device(raw, dev))
+        out[dev] = (float(m["loss"]), float(m["lr"]),
+                    [t.cpu() for t in tree_leaves(new)])
+    (l_cpu, lr, want), (l_card, _, got) = out["cpu"], out[DEV]
+    hard_r, hard_lr = TRAIN_CPU_TOL["hard"]
+    tight_r, tight_lr = TRAIN_CPU_TOL["tight"]
+    worst, close, total = 0.0, 0, 0
+    for g, w in zip(got, want):
+        err = (g - w).abs()
+        worst = max(worst, float((err / (hard_r * w.abs()
+                                         + hard_lr * lr)).max()))
+        close += int((err <= tight_r * w.abs() + tight_lr * lr).sum())
+        total += err.numel()
+    res = dict(loss_cpu=l_cpu, loss_card=l_card,
+               loss_rel_err=abs(l_card - l_cpu) / abs(l_cpu),
+               worst_of_hard_limit=worst, share_within_tight=close / total,
+               tolerance=TRAIN_CPU_TOL)
+    say("train_cpu", arch=cfg.name, dtype="float32", **res)
+    if (res["loss_rel_err"] > TRAIN_CPU_TOL["loss"] or worst > 1.0
+            or res["share_within_tight"] < TRAIN_CPU_TOL["share"]):
+        raise AssertionError(f"the card's train step differs from the "
+                             f"CPU's: {res}")
+
+
+def train() -> dict:
+    """Phase 10: qwen3-0.6b trained at full width through
+    ``launch.train.train_loop``, on the plain routes with autograd's
+    backward, as the JAX package trains. Steps 1-3, an async checkpoint at
+    step 3 restored into fresh tensors on the card and held bit-equal to
+    the trained state; steps 4-6 of the uninterrupted run and again from
+    the restored state, their losses compared; every kernel's launch count
+    set to 0 before training and read after (0: training runs no kernel);
+    one step under remat "full" beside "dots" for the peak; a step with
+    ``use_pallas`` raises; then reduced qwen3 in f32 on the card against
+    the CPU. Returns the launches."""
+    import shutil
+    import tempfile
+    import time
+    from repro_torch import device as devmod
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch.train import (batch_to_device, restore_latest,
+                                          train_loop)
+    from repro_torch.models import model_api as api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    dev = devmod.resolve(DEV)
+    cfg = get_config(TRAIN_ARCH).replace(remat="dots")
+    oc = opt.OptConfig(**TRAIN_OPT)
+    stream = TokenStream(DataConfig(cfg.vocab_size, TRAIN_SEQ,
+                                    TRAIN_BATCH))
+
+    def fresh():
+        return (api.init_params(cfg, devmod.generator(0, dev), dev),
+                opt.init_state(oc, api.model_specs(cfg), dev))
+
+    def log(line):
+        print(f"[train] {line}", flush=True)
+
+    kernels = wrappers()
+    ckdir = tempfile.mkdtemp(prefix=".train_ckpt_", dir=ROOT)
+    # deterministic algorithms (cuBLAS's needs CUBLAS_WORKSPACE_CONFIG,
+    # which main sets before the first product), without the fill of each
+    # new allocation that the mode adds by default
+    torch.use_deterministic_algorithms(True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        params, state = fresh()
+        say("train_model", arch=cfg.name, layers=cfg.num_layers,
+            seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+            microbatches=TRAIN_MICROBATCHES, remat=cfg.remat,
+            param_bytes=_tree_bytes(params), opt_state_bytes=_tree_bytes(
+                {k: v for k, v in state.items() if k != "step"}))
+        ck = Checkpointer(ckdir, retain=2, async_save=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        params, state, first = train_loop(
+            cfg, oc, params, state, stream, TRAIN_SAVE_AT,
+            microbatches=TRAIN_MICROBATCHES, ck=ck, ckpt_every=TRAIN_SAVE_AT,
+            log=log)
+        t0 = time.perf_counter()
+        r_params, r_state, start = restore_latest(ck, *fresh())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        saved_equal = (start == TRAIN_SAVE_AT
+                       and _trees_equal(r_params, params)
+                       and _trees_equal(r_state, state))
+        del r_params, r_state
+        params, state, rest = train_loop(
+            cfg, oc, params, state, stream, TRAIN_STEPS,
+            start_step=TRAIN_SAVE_AT, microbatches=TRAIN_MICROBATCHES,
+            log=log)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        whole = first + rest
+
+        # one step under remat "full", for its peak beside "dots"
+        batch = batch_to_device(stream.batch(TRAIN_STEPS), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        make_train_step(cfg.replace(remat="full"), oc, TRAIN_MICROBATCHES)(
+            params, state, batch)
+        torch.cuda.synchronize()
+        full_ms = (time.perf_counter() - t0) * 1e3
+        full_peak = torch.cuda.max_memory_allocated()
+
+        # the kernel route has no backward: a step raises before launching
+        k3 = kernels["flash_attention"].launches
+        small = {k: v[:1, :128] for k, v in batch.items()}
+        try:
+            make_train_step(cfg.replace(use_pallas=True), oc)(params, state,
+                                                              small)
+            raised = False
+        except RuntimeError as e:
+            raised = "has no backward" in str(e)
+        raised = raised and kernels["flash_attention"].launches == k3
+        del params, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # steps 4-6 again, from the step-3 checkpoint
+        params, state, start = restore_latest(ck, *fresh())
+        _, _, resumed = train_loop(
+            cfg, oc, params, state, stream, TRAIN_STEPS, start_step=start,
+            microbatches=TRAIN_MICROBATCHES, log=log)
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    losses = [r["loss"] for r in whole]
+    resume_err = max(abs(a["loss"] - b["loss"])
+                     for a, b in zip(resumed, whole[TRAIN_SAVE_AT:]))
+    steady = [r["ms"] for r in whole[1:]]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say("train", arch=cfg.name, steps=whole, resumed=resumed,
+        tokens_per_step=tokens,
+        tokens_per_s=tokens / (float(np.median(steady)) / 1e3),
+        ms_per_step_median=float(np.median(steady)),
+        first_step_ms=whole[0]["ms"],
+        max_memory_allocated_bytes=peak,
+        full_remat_step_ms=full_ms,
+        full_remat_max_memory_allocated_bytes=full_peak,
+        restore_s=restore_s, restored_bit_equal=saved_equal,
+        resumed_max_abs_loss_err=resume_err,
+        resume_limit=TRAIN_RESUME_LIMIT, launches=launches,
+        use_pallas_step_raises=raised)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"training launched kernels: {launches}")
+    if not saved_equal:
+        raise AssertionError("the restored step-3 state differs from the "
+                             "saved one")
+    if resume_err > TRAIN_RESUME_LIMIT:
+        raise AssertionError(f"resumed losses differ by {resume_err}")
+    if not raised:
+        raise AssertionError("a train step with use_pallas did not raise "
+                             "before launching")
+    if peak > 75e9:
+        raise AssertionError(f"training peak {peak} bytes above 75 GB")
+    train_on_cpu_and_card()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible "
@@ -1707,6 +1966,10 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # read by cuBLAS when its first handle is made; phase 10 runs under
+    # deterministic algorithms, which ask for it. 8 x 4 MiB is PyTorch's
+    # default workspace on sm_90 already.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     card = card_name_and_power()
     print(card, flush=True)
     say("card", nvidia_smi=card, torch=torch.__version__,
@@ -1734,6 +1997,7 @@ def main() -> int:
         cache_launches += n
     for arch in API_MODELS:
         launches[arch] = run_api_model(arch)
+    train()
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",

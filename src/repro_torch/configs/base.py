@@ -11,8 +11,9 @@ family.
 This is the PyTorch port's own copy of the JAX package's configs, field for
 field, so that a config of one package compares equal to the other's. Fields
 that only steer JAX compilation or sharding (``scan_layers``,
-``unroll_scans``, ``seq_parallel``, ``decode_seq_shard``, ``remat``) are kept
-for that parity and are not read by the port.
+``unroll_scans``, ``seq_parallel``, ``decode_seq_shard``) are kept for that
+parity and are not read by the port. ``remat`` picks the training path's
+activation checkpointing (``models/transformer._remat``).
 """
 from __future__ import annotations
 

@@ -12,6 +12,13 @@ scan's chunk on both routes. The CUDA kernels pick their own tiles and
 splits, and ``rglru_scan``'s ``chunk``/``width_block`` (tiles of the Pallas
 kernel) tile neither route: the recurrence is the same function whatever the
 tiling.
+
+None of the four has a backward, in the JAX package (no ``custom_vjp``) as
+here: a CUDA kernel's output has no ``grad_fn``, so autograd would pass no
+gradient upstream of it. Each entry point raises when grad mode is on and an
+input requires grad, on the card and on the CPU alike, so that a CPU test
+sees what the card does. Training runs the plain routes
+(``cfg.use_pallas=False``), as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -25,9 +32,16 @@ from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import ssd_scan as _ssd
 
 
+def _no_backward(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward; train with "
+                           f"use_pallas=False")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_block: int = 128, kv_block: int = 128) -> torch.Tensor:
+    _no_backward("flash_attention", q, k, v)
     if q.device.type == "cuda":
         return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
                                         v.contiguous(), causal=causal,
@@ -43,6 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, splits: int = 4,
                      kv_block: int = 128) -> torch.Tensor:
+    _no_backward("decode_attention", q, k, v)
     if q.device.type == "cuda":
         return _da.decode_attention_cuda(q.contiguous(), k.contiguous(),
                                          v.contiguous(),
@@ -58,6 +73,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 64
              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _no_backward("ssd_scan", x, dt, A, Bm, Cm)
     if x.device.type == "cuda":
         return _ssd.ssd_scan_cuda(x.contiguous(), dt.float().contiguous(),
                                   A.float().contiguous(), Bm.contiguous(),
@@ -70,6 +86,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, *, chunk: int = 64,
                width_block: int = 128) -> torch.Tensor:
     del chunk, width_block
+    _no_backward("rglru_scan", a, b)
     if a.device.type == "cuda":
         return _rglru.rglru_scan_cuda(a.float().contiguous(),
                                       b.float().contiguous())

@@ -1,10 +1,15 @@
-"""Carry parameters across from the JAX package.
+"""Carry parameters and optimizer state across from the JAX package.
 
 ``params_from_numpy(cfg, tree)`` takes the JAX package's parameter tree with
 every leaf as a NumPy array (``np.asarray`` of each JAX array) and returns the
 port's tree of tensors, leaf for leaf, checked against the port's own
 ``model_specs(cfg)``, on ``device`` (the card unless the caller asks for the
 CPU). Values go through float32, so bf16 weights arrive bit-exact in bf16.
+
+``opt_state_from_numpy(cfg, state)`` does the same for the JAX package's
+AdamW state (``m``, ``v``, ``step``, and ``ef`` when present): f32 trees
+checked against the parameters' specs and a 0-d int32 step, as the port's
+``train.optimizer.init_state`` makes them.
 """
 from __future__ import annotations
 
@@ -38,3 +43,14 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
         return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
     return go(specs, tree, "")
+
+
+def opt_state_from_numpy(cfg: ModelConfig, state: Dict[str, Any],
+                         device: DeviceLike = None) -> Dict[str, Any]:
+    device = resolve(device)
+    out = {k: params_from_numpy(cfg, state[k], dtype=torch.float32,
+                                device=device)
+           for k in ("m", "v", "ef") if k in state}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=device)
+    return out

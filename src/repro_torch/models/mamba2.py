@@ -180,12 +180,19 @@ def ssm_block(cfg: ModelConfig, p: Dict, x_in: torch.Tensor,
     return out
 
 
-def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor):
-    """Run the layer stack. Returns (hidden, None): the family has no kv."""
+def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
+                   remat: bool = False):
+    """Run the layer stack. Returns (hidden, None, aux loss 0.0), as the JAX
+    package's: the family has no kv. With ``remat`` each layer runs under
+    ``transformer._remat``'s checkpointing."""
+    def body(x, p):
+        return ssm_block(cfg, p, x)
+
+    fn = tfm._remat(cfg, body) if remat else body
     x = embeds
     for i in range(cfg.num_layers):
-        x = ssm_block(cfg, tree_index(params["layers"], i), x)
-    return nn.rmsnorm(x, params["final_norm"]), None
+        x = fn(x, tree_index(params["layers"], i))
+    return nn.rmsnorm(x, params["final_norm"]), None, 0.0
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ the SSM through ``mamba2``, encoder-decoder through ``whisper``).
   model_specs(cfg)                       -> Spec tree
   init_params(cfg, generator, device)    -> materialized params
   param_count(cfg)                       -> int
+  loss_fn(cfg, params, batch)            -> (scalar loss, metrics)
   prefill(cfg, params, batch)            -> (logits, cache)
   decode_step(cfg, params, cache, batch) -> (logits, cache)
   cache_specs / init_cache
@@ -18,7 +19,7 @@ engine does, so it serves the dense, MoE, hybrid and SSM families; the VLM
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +53,48 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def param_count(cfg: ModelConfig) -> int:
     return pm.count(model_specs(cfg))
+
+
+# --------------------------------------------------------------- loss ------
+def _lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy over the positions ``mask`` keeps, the
+    log-sum-exp taken over f32 logits."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = (lse - gold) * mask
+    return ce.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
+            remat: bool = True) -> Tuple[torch.Tensor, Dict]:
+    """Next-token CE (+ MoE aux) for every family, as the JAX package's.
+    ``batch``: ``tokens``, ``labels`` and ``mask`` (B, S), plus
+    ``image_embeds`` for the VLM (whose loss covers the text positions
+    only) and ``frames`` for encoder-decoder. With ``remat`` each layer of
+    the stack runs under ``cfg.remat``'s checkpointing."""
+    if cfg.family == ENCDEC:
+        logits = whisper.decode_train(
+            cfg, params, batch["tokens"],
+            whisper.encode(cfg, params, batch["frames"]), remat=remat)
+        loss = _lm_loss(cfg, logits, batch["labels"], batch["mask"])
+        return loss, {"ce": loss, "aux": 0.0}
+
+    if cfg.family in (DENSE, MOE, VLM):
+        embeds = tfm.embed_inputs(cfg, params, batch)
+        h, _, aux = tfm.forward_hidden(cfg, params, embeds, remat=remat)
+        if cfg.family == VLM:                    # loss over text positions
+            h = h[:, cfg.n_img_tokens:, :]
+    elif cfg.family in (HYBRID, SSM):
+        embeds = params["embed"][batch["tokens"]]
+        h, _, aux = _mod(cfg).forward_hidden(cfg, params, embeds,
+                                             remat=remat)
+    else:
+        raise ValueError(cfg.family)
+    logits = tfm.logits_fn(cfg, params, h)
+    ce = _lm_loss(cfg, logits, batch["labels"], batch["mask"])
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict,

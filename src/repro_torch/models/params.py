@@ -22,11 +22,13 @@ class Spec(NamedTuple):
     scale: float = 1.0          # multiplier on fan-in-scaled normal
 
 
-def tree_map(f: Callable[[Any], Any], tree):
-    """Map ``f`` over the leaves (Specs or tensors) of a nested dict."""
+def tree_map(f: Callable[..., Any], tree, *rest):
+    """Map ``f`` over the leaves (Specs or tensors) of a nested dict, and
+    over the matching leaves of the ``rest`` trees beside it."""
     if isinstance(tree, dict):
-        return {k: tree_map(f, v) for k, v in tree.items()}
-    return f(tree)
+        return {k: tree_map(f, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return f(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -34,6 +36,19 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """The tree of ``like``'s structure whose leaves are ``leaves``, taken
+    in ``tree_leaves``' order."""
+    it = iter(leaves)
+
+    def go(t):
+        if isinstance(t, dict):
+            return {k: go(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return go(like)
 
 
 def tree_index(tree, i: int):

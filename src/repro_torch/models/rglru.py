@@ -181,19 +181,26 @@ def _stack_states(states):
 
 
 def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
-                   collect_state: bool = False):
-    """Returns (hidden, (super states, tail states) | None). Super states
-    are {"rec1": {"h", "conv"}, "rec2": ..., "kv": (k, v)}, each stacked
-    over the supers."""
+                   collect_state: bool = False, remat: bool = False):
+    """Returns (hidden, (super states, tail states) | None, aux loss 0.0),
+    as the JAX package's. Super states are {"rec1": {"h", "conv"}, "rec2":
+    ..., "kv": (k, v)}, each stacked over the supers. With ``remat`` each
+    super-block runs under ``transformer._remat``'s checkpointing (the tail
+    blocks do not, as in the JAX package)."""
     s = embeds.shape[1]
     positions = torch.arange(s, device=embeds.device)
+
+    def body(x, p):
+        x, st1 = _rec_with_state(cfg, p["rec1"], x)
+        x, st2 = _rec_with_state(cfg, p["rec2"], x)
+        x, kv = attn_block(cfg, p["attn"], x, positions)
+        return x, st1, st2, kv
+
+    fn = tfm._remat(cfg, body) if remat else body
     x = embeds
     rec1, rec2, ks, vs = [], [], [], []
     for i in range(n_super(cfg)):
-        p = tree_index(params["supers"], i)
-        x, st1 = _rec_with_state(cfg, p["rec1"], x)
-        x, st2 = _rec_with_state(cfg, p["rec2"], x)
-        x, (k, v) = attn_block(cfg, p["attn"], x, positions)
+        x, st1, st2, (k, v) = fn(x, tree_index(params["supers"], i))
         if collect_state:
             rec1.append(st1)
             rec2.append(st2)
@@ -205,10 +212,10 @@ def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
                                                      params[f"tail{i}"], x)
     x = nn.rmsnorm(x, params["final_norm"])
     if not collect_state:
-        return x, None
+        return x, None, 0.0
     states = {"rec1": _stack_states(rec1), "rec2": _stack_states(rec2),
               "kv": (torch.stack(ks), torch.stack(vs))}
-    return x, (states, tail_states)
+    return x, (states, tail_states), 0.0
 
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
@@ -222,7 +229,7 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
     tok = batch["tokens"]
     b, s = tok.shape
     context_len = context_len if context_len is not None else s
-    x, (states, tail_states) = forward_hidden(
+    x, (states, tail_states), _ = forward_hidden(
         cfg, params, params["embed"][tok], collect_state=True)
     logits = tfm.logits_fn(cfg, params, x[:, -1:, :])
     cache = init_cache(cfg, b, context_len, device=tok.device)

@@ -19,9 +19,11 @@ a device mesh and is not ported yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import MOE, VLM, ModelConfig
 from repro_torch.kernels import ops as kops
@@ -139,8 +141,34 @@ def ffn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor):
     return x + out, aux
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat="dots"``: keep the
+    outputs of the unbatched products (``jax.checkpoint_policies.
+    checkpoint_dots_with_no_batch_dims``), recompute everything else, the
+    attention's batched products among it."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """One layer under activation checkpointing, by ``cfg.remat``: "none"
+    runs ``fn`` as it is, "full" saves nothing of it, "dots" saves the
+    outputs of its unbatched products. The values are those of ``fn``."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        ckpt.checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                     _save_dots))
+
+
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -153,18 +181,24 @@ def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
 
 
 def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
-                   collect_kv: bool = False):
+                   collect_kv: bool = False, remat: bool = False):
     """Run the layer stack. Returns (hidden, (k_stack, v_stack) | None,
     aux_loss), the stacks (L,B,S,KH,Dh), the aux loss the sum of the MoE
-    layers' (an f32 scalar tensor; 0.0 for the other families)."""
+    layers' (an f32 scalar tensor; 0.0 for the other families). With
+    ``remat`` each layer runs under ``_remat``'s checkpointing."""
     s = embeds.shape[1]
     positions = torch.arange(s, device=embeds.device)
+
+    def body(x, p):
+        x, kv = attn_block(cfg, p, x, positions)
+        x, a = ffn_block(cfg, p, x)
+        return x, kv, a
+
+    fn = _remat(cfg, body) if remat else body
     x, ks, vs = embeds, [], []
     aux = 0.0
     for i in range(cfg.num_layers):
-        p = tree_index(params["layers"], i)
-        x, (k, v) = attn_block(cfg, p, x, positions)
-        x, a = ffn_block(cfg, p, x)
+        x, (k, v), a = fn(x, tree_index(params["layers"], i))
         aux = aux + a
         if collect_kv:
             ks.append(k)

@@ -131,15 +131,21 @@ def _dec_layer_fwd(cfg: ModelConfig, p: Dict, x: torch.Tensor,
 
 
 def decode_train(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                 enc_out: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced decoder logits (B, S, vocab) over ``tokens``."""
+                 enc_out: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """Teacher-forced decoder logits (B, S, vocab) over ``tokens``. With
+    ``remat`` each decoder layer runs under ``transformer._remat``'s
+    checkpointing (the encoder does not, as in the JAX package)."""
     x = params["embed"][tokens]
     dev = x.device
     pos = torch.arange(tokens.shape[1], device=dev)
     fpos = torch.arange(enc_out.shape[1], device=dev)
+
+    def body(x, p):
+        return _dec_layer_fwd(cfg, p, x, enc_out, pos, fpos)[0]
+
+    fn = tfm._remat(cfg, body) if remat else body
     for i in range(cfg.num_layers):
-        x, _, _ = _dec_layer_fwd(cfg, tree_index(params["dec_layers"], i), x,
-                                 enc_out, pos, fpos)
+        x = fn(x, tree_index(params["dec_layers"], i))
     x = nn.rmsnorm(x, params["final_norm"])
     return _matmul(x, params["lm_head"])
 

@@ -624,3 +624,93 @@ def test_autoscale_scenario_with_the_forecaster_on_card(cuda_device):
     assert got["torch_ticks"] > 0 and want["torch_ticks"] == 0
     assert ps.fused_composite_decide_cuda.launches == before
     assert got["report"].to_json() == want["report"].to_json()
+
+
+# ------------------------------------------------------------- training ----
+def _guarded_calls(device):
+    """Each kernel entry point on card inputs it takes, with its wrapper:
+    (call, float inputs, wrapper)."""
+    fq, fk, fv = (torch.from_numpy(x).to(device, torch.bfloat16)
+                  for x in card_inputs(*CARD_CASES[0][:6]))
+    q, k, v, lens = _decode_case("one_split", "f32", device)
+    case = ssd_scan_cases.CASES[0]
+    x, dt, A, Bm, Cm = (torch.from_numpy(t).to(device, torch.float32)
+                        for t in ssd_scan_cases.inputs(*case))
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(t).to(device, torch.float32)
+            for t in (rng.uniform(0.5, 1.0, (1, 64, 32)),
+                      rng.normal(size=(1, 64, 32))))
+    return {
+        "flash_attention": (lambda *t: ops.flash_attention(*t),
+                            (fq, fk, fv), fa.flash_attention_cuda),
+        "decode_attention": (lambda *t: ops.decode_attention(*t, lens),
+                             (q, k, v), da.decode_attention_cuda),
+        "ssd_scan": (lambda *t: ops.ssd_scan(*t, chunk=case[-1]),
+                     (x, dt, A, Bm, Cm), ssd.ssd_scan_cuda),
+        "rglru_scan": (lambda *t: ops.rglru_scan(*t), (a, b),
+                       rg.rglru_scan_cuda),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "ssd_scan", "rglru_scan"])
+def test_kernel_entry_points_raise_under_autograd_on_the_card(cuda_device,
+                                                              name):
+    """A CUDA kernel's output has no grad_fn: under autograd, with any
+    input that requires grad, the entry point raises before launching, as
+    it does on the CPU (tests/test_torch_train.py); without grad mode it
+    launches."""
+    fn, args, wrapper = _guarded_calls(cuda_device)[name]
+    for i in range(len(args)):
+        live = [t.clone().requires_grad_(j == i) for j, t in enumerate(args)]
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            fn(*live)
+        assert wrapper.launches == before
+        with torch.no_grad():
+            fn(*live)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_a_reduced_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One f32 step of reduced qwen3-0.6b, two microbatches, on the card
+    and on the CPU from the same parameters and batch. Loss 2e-5 rel (a
+    TF32 product would move it by ~1e-4); parameters as
+    tests/test_torch_train_steps.py holds the port against the JAX package:
+    every element within 2e-5 rel + 2.1 lr, 99.9% within 1e-6 rel + 1e-3
+    lr (AdamW's step is ill-conditioned where a gradient is near eps)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import model_api as api
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("qwen3-0.6b").reduced()
+    oc = opt.OptConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+    params = tree_map(lambda t: t.float(), api.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    raw = TokenStream(DataConfig(cfg.vocab_size, 128, 4,
+                                 mean_doc_len=32)).batch(0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(dev), params)
+        new, state, m = make_train_step(cfg, oc, 2)(
+            p, opt.init_state(oc, api.model_specs(cfg), dev),
+            batch_to_device(raw, torch.device(dev)))
+        assert int(state["step"]) == 1
+        out[str(dev)] = (float(m["loss"]), float(m["lr"]),
+                         [t.cpu() for t in tree_leaves(new)])
+    (l_cpu, lr, want), (l_card, _, got) = out["cpu"], out["cuda"]
+    assert l_card == pytest.approx(l_cpu, rel=2e-5)
+    close = total = 0
+    for g, w in zip(got, want):
+        err = (g - w).abs()
+        assert bool((err <= 2e-5 * w.abs() + 2.1 * lr).all())
+        close += int((err <= 1e-6 * w.abs() + 1e-3 * lr).sum())
+        total += err.numel()
+    assert close / total >= 0.999

@@ -227,8 +227,8 @@ def test_recurrent_engine_batch_equals_stacked_layers(name, layers):
         n = len(r.prompt)
         seq = list(r.prompt) + [0] * (eng._bucket_len(n) - n)
         for expect in r.out_tokens:
-            h, _ = mod.forward_hidden(cfg, params,
-                                      params["embed"][torch.tensor([seq])])
+            h, _, _ = mod.forward_hidden(
+                cfg, params, params["embed"][torch.tensor([seq])])
             logits = ttfm.logits_fn(cfg, params, h[:, -1:, :])
             assert int(torch.argmax(logits[0, -1])) == expect, r.rid
             seq.append(expect)

@@ -266,7 +266,8 @@ def test_recurrent_forward_logits(rec_params, name, dtype, use_pallas):
     toks = _tokens(3, (2, REC_SEQ))
     jh = _jax_forward(jcfg, jp, toks)
     mod = tm2 if tcfg.family == "ssm" else trg
-    th, _ = mod.forward_hidden(tcfg, tp, tp["embed"][torch.from_numpy(toks)])
+    th, _, _ = mod.forward_hidden(tcfg, tp,
+                                  tp["embed"][torch.from_numpy(toks)])
     _close(ttfm.logits_fn(tcfg, tp, th), jtfm.logits_fn(jcfg, jp, jh), dtype)
 
 
@@ -306,8 +307,8 @@ def test_recurrent_decode_matches_full_forward(rec_params, name, use_pallas):
     mod = tm2 if tcfg.family == "ssm" else trg
     for step in range(3):
         nxt = int(torch.argmax(logits[0, -1]))
-        h, _ = mod.forward_hidden(tcfg, tp,
-                                  tp["embed"][torch.tensor([seq])])
+        h, _, _ = mod.forward_hidden(tcfg, tp,
+                                     tp["embed"][torch.tensor([seq])])
         ref_logits = ttfm.logits_fn(tcfg, tp, h[:, -1:, :])
         assert int(torch.argmax(ref_logits[0, -1])) == nxt, \
             f"{name}: decode diverges at step {step}"

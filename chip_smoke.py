@@ -156,7 +156,37 @@ Phases, each printing its numbers on lines of its own:
      4-6 again from the checkpoint, their losses equal to the
      uninterrupted run's; then reduced qwen3 in f32, one step on the card
      against the same step on the CPU (``[train_cpu]``);
- 11. print one line listing every kernel, then the result line.
+ 11. mesh (``[mesh]``): a (1, 1) ("data", "model") mesh over a world of
+     one on the card (NCCL, an in-memory store; the script runs on one
+     card, so every placement is ``Replicate``): qwen3-0.6b at full width
+     and depth, its parameters placed by ``param_shardings`` and AdamW's
+     state by ``state_shardings`` (ZeRO-1), one train step of 2 x 4096
+     ``TokenStream`` tokens under deterministic algorithms, twice each way:
+     each way's two steps bit-equal, the mesh's leaves held to the
+     meshless ones by ``launch/mesh_parity.leaf_diffs``'s bounds (the
+     card's step takes one of two bit patterns; parameters one
+     bf16 ulp + 2.1 lr and 98% within one ulp + 0.05 lr; m and v element
+     by element against |want| + the leaf's rms, every element within
+     2**4 and 99% within 2**-7), loss 2**-6, grad norm 2**-5; the
+     outputs in their declared placements; ms a step both ways); the
+     sharded state saved and restored with ``shardings=`` onto the mesh,
+     bit-equal; a prefill of 4 x 1024 tokens with ``use_pallas`` on the
+     mesh, K3 through the local-shard wrapper (28 launches), then 32
+     decode steps with ``decode_impl="shmap_flash"`` against the meshless
+     prefill and greedy decode, fed its tokens (the same greedy choices
+     wherever the top two logits are further apart than twice the largest
+     logit difference, and the share that agree printed; the prefill's
+     logits within TOL, the decode's within ``MESH_DECODE_TOL``; ms a step
+     both ways); mixtral-8x7b on its first 4 layers, ``sorted_shmap`` on the
+     mesh against ``sorted`` without one, outputs and aux bit-equal;
+ 12. dry-run (``[dryrun]``): ``python -m repro_torch.launch.dryrun --arch
+     qwen3-0.6b --arch mixtral-8x7b --mesh both`` (full depth, 14 cells on
+     fake worlds of 256 and 512 ranks) in a subprocess started after phase
+     10, beside phase 11 only, on a host core of its own (with its
+     hyperthread siblings; this process keeps the others); every cell OK;
+     each cell's per-device argument bytes, FLOPs, collective bytes and
+     seconds printed;
+ 13. print one line listing every kernel, then the result line.
 
 Any failed phase raises, so the script exits non-zero and prints no result
 line. Without a visible card it exits non-zero at once.
@@ -1959,6 +1989,355 @@ def train() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: a device mesh of one rank on the card
+# ---------------------------------------------------------------------------
+
+# The script runs on one card, and NCCL takes one rank a device: the mesh
+# is (1, 1) ("data", "model") over a world of one (NCCL, an in-memory
+# store). Behaviour that needs more ranks runs on four CPU ranks in
+# tests/test_torch_mesh_ranks.py.
+MESH_ARCH = "qwen3-0.6b"
+MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 4096, 2
+MESH_PROMPTS, MESH_PROMPT_LEN, MESH_DECODE_STEPS = 4, 1024, 32
+MESH_MOE = ("mixtral-8x7b", 2, 256)             # arch, batch, sequence
+# the prefill runs K3 both ways: its last-token logits within TOL. Decode
+# runs two algorithms: the split-K body casts unnormalised probabilities to
+# the bf16 cache's dtype, the plain attention normalised ones, so their
+# bf16 roundings differ; the JAX package's own test holds its two decode
+# routes to 5e-2 (tests/test_perf_variants.py), and so does this phase
+MESH_DECODE_TOL = (5e-2, 5e-2)
+
+
+def mesh_phase() -> dict:
+    """Phase 11 (``[mesh]``): the port on a mesh of one rank, each run
+    against the same run without a mesh. Returns K3's launches through the
+    local-shard wrapper in one prefill."""
+    import shutil
+    import tempfile
+    import time
+    import torch.distributed as dist
+    from repro_torch import device as devmod
+    from repro_torch import sharding as shd
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh_parity import fingerprint, leaf_diffs
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import model_api as api
+    from repro_torch.models import params as pm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    dev = devmod.resolve(DEV)
+    kernels = wrappers()
+    mesh = make_local_mesh(1, device=dev)
+    out = {}
+    ckdir = tempfile.mkdtemp(prefix=".mesh_ckpt_", dir=ROOT)
+    try:
+        # --- one train step, ZeRO-placed state, against the meshless step
+        cfg = get_config(MESH_ARCH).replace(remat="dots")
+        oc = opt.OptConfig(**TRAIN_OPT)
+        specs = api.model_specs(cfg)
+        p_sh = api.param_shardings(cfg, mesh)
+        s_sh = opt.state_shardings(oc, specs, mesh)
+        raw = TokenStream(DataConfig(cfg.vocab_size, MESH_TRAIN_SEQ,
+                                     MESH_TRAIN_BATCH)).batch(0)
+        batch = batch_to_device(raw, dev)
+        step = make_train_step(cfg, oc)
+        torch.use_deterministic_algorithms(True)
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            runs = {}
+            for placed in (False, True):
+                params = api.init_params(cfg, devmod.generator(0, dev), dev)
+                state = opt.init_state(oc, specs, dev)
+                b = batch
+                if placed:
+                    params = pm.distribute(params, p_sh)
+                    state = pm.distribute(state, s_sh)
+                    b = pm.distribute(batch, api.batch_shardings(
+                        cfg, mesh, InputShape("chip_smoke", MESH_TRAIN_SEQ,
+                                              MESH_TRAIN_BATCH, "train")))
+                ms, first, prints = [], None, []
+                with shd.use_mesh(mesh if placed else None):
+                    for _ in range(2):     # the second step is timed
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        res = step(params, state, b)
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                        first = first or res
+                        prints.append(fingerprint(pm.tree_map(
+                            lambda t: t.to_local() if shd.is_dtensor(t)
+                            else t, {"params": res[0], "state": res[1]})))
+                runs[placed] = (first, ms, prints)
+                del params, state, res
+                gc.collect()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+        (p0, s0, m0), ms0, fp0 = runs[False]
+        (p1, s1, m1), ms1, fp1 = runs[True]
+        # the card's step takes one of two bit patterns (PERF.md §6):
+        # each way must repeat; the mesh's is held to the meshless one's
+        # within leaf_diffs' bounds, set from the two patterns' spread
+        bit_equal = fp1[0] in fp0
+        placed_ok = (all(tuple(t.placements) == sh.placements for t, sh in
+                         zip(pm.tree_leaves(p1), pm.tree_leaves(p_sh)))
+                     and all(tuple(t.placements) == sh.placements
+                             for t, sh in zip(pm.tree_leaves(s1),
+                                              pm.tree_leaves(s_sh))))
+        loss0, loss1 = float(m0["loss"]), float(m1["loss"].full_tensor())
+        gn0, gn1 = (float(m0["grad_norm"]),
+                    float(m1["grad_norm"].full_tensor()))
+        lr = float(m0["lr"])
+        local = {"params": pm.tree_map(lambda t: t.to_local(), p1),
+                 "state": pm.tree_map(lambda t: t.to_local(), s1)}
+        diffs = leaf_diffs(local, {"params": p0, "state": s0}, lr)
+        say("mesh", check="train_step", arch=cfg.name, mesh=[1, 1],
+            tokens=MESH_TRAIN_SEQ * MESH_TRAIN_BATCH, loss_meshless=loss0,
+            loss_mesh=loss1, grad_norm_meshless=gn0, grad_norm_mesh=gn1,
+            bit_equal_to_meshless=bit_equal,
+            meshless_steps_repeat=fp0[0] == fp0[1],
+            mesh_steps_repeat=fp1[0] == fp1[1],
+            placements_as_declared=placed_ok, step_ms_meshless=ms0[1],
+            step_ms_mesh=ms1[1], first_step_ms_meshless=ms0[0],
+            first_step_ms_mesh=ms1[0],
+            against_meshless_first_step={
+                k: v for k, v in diffs.items() if k != "differing_leaves"},
+            differing_leaves=len(diffs["differing_leaves"]))
+        if (not placed_ok or fp0[0] != fp0[1] or fp1[0] != fp1[1]
+                or not diffs["ok"]
+                or abs(loss1 - loss0) > 2 ** -6 * abs(loss0)
+                or abs(gn1 - gn0) > 2 ** -5 * abs(gn0)):
+            raise AssertionError("the mesh's train step differs from the "
+                                 "meshless one")
+
+        # --- the sharded state through a checkpoint, onto the mesh
+        ck = Checkpointer(ckdir, retain=1)
+        tree = {"params": p1, "opt": s1}
+        t0 = time.perf_counter()
+        ck.save(1, tree)
+        back = ck.restore(1, tree, shardings={"params": p_sh, "opt": s_sh})
+        torch.cuda.synchronize()
+        ck_s = time.perf_counter() - t0
+        bit_equal = all(
+            torch.equal(a.to_local(), b.to_local())
+            and tuple(a.placements) == tuple(b.placements)
+            for a, b in zip(pm.tree_leaves(tree), pm.tree_leaves(back)))
+        say("mesh", check="checkpoint", leaves=len(pm.tree_leaves(tree)),
+            restored_bit_equal=bit_equal, save_and_restore_s=ck_s)
+        if not bit_equal:
+            raise AssertionError("the restored sharded state differs")
+        del p0, s0, p1, s1, tree, back, local
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- prefill through K3's local-shard wrapper, then split-K decode
+        cfg = get_config(MESH_ARCH).replace(use_pallas=True,
+                                            decode_impl="shmap_flash")
+        params = api.init_params(cfg, devmod.generator(0, dev), dev)
+        toks = torch.from_numpy(gen(21).integers(
+            1, cfg.vocab_size, (MESH_PROMPTS, MESH_PROMPT_LEN))).to(dev)
+        runs, forced = {}, None
+        with torch.inference_mode():
+            for placed in (False, True):
+                p = pm.distribute(params, api.param_shardings(cfg, mesh)) \
+                    if placed else params
+                with shd.use_mesh(mesh if placed else None):
+                    for fn in kernels.values():
+                        fn.launches = 0
+                    logits, cache = api.prefill(cfg, p, {"tokens": toks},
+                                                MESH_PROMPT_LEN)
+                    k3 = kernels["flash_attention"].launches
+                    if placed:
+                        cache = pm.distribute(cache, api.cache_shardings(
+                            cfg, mesh, MESH_PROMPTS, MESH_PROMPT_LEN))
+                    seq, lg, step_ms = [], [], []
+                    for t in range(MESH_DECODE_STEPS):
+                        full = (logits.full_tensor() if shd.is_dtensor(
+                            logits) else logits)
+                        lg.append(full[:, -1].float())
+                        # the mesh run decodes the meshless run's greedy
+                        # tokens, so that the two runs see the same inputs
+                        tok = (full[:, -1].argmax(-1)[:, None]
+                               if forced is None else forced[:, t:t + 1])
+                        seq.append(tok)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        logits, cache = api.decode_step(cfg, p, cache,
+                                                        {"token": tok})
+                        torch.cuda.synchronize()
+                        step_ms.append((time.perf_counter() - t0) * 1e3)
+                    runs[placed] = (torch.stack(lg), k3,
+                                    float(np.median(step_ms)))
+                    forced = torch.cat(seq, 1)
+                    del cache, logits
+        (l0, k30, ms0), (l1, k31, ms1) = runs[False], runs[True]
+        atol, rtol = TOL[torch.bfloat16]
+        d_atol, d_rtol = MESH_DECODE_TOL
+        pre_err = float((l1[0] - l0[0]).abs().max())
+        dec_err = float((l1[1:] - l0[1:]).abs().max())
+        # greedy choices: the same wherever the meshless run's top two are
+        # further apart than twice the largest logit difference (closer
+        # pairs are ties at this precision; random weights make many)
+        top2 = l0.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * max(dec_err, pre_err)
+        same = l1.argmax(-1) == l0.argmax(-1)
+        tokens_ok = bool(same[clear].all())
+        ok = (tokens_ok
+              and bool(torch.allclose(l1[0], l0[0], atol=atol, rtol=rtol))
+              and bool(torch.allclose(l1[1:], l0[1:], atol=d_atol,
+                                      rtol=d_rtol)))
+        say("mesh", check="prefill_decode", arch=cfg.name,
+            prompts=MESH_PROMPTS, prompt_len=MESH_PROMPT_LEN,
+            decode_steps=MESH_DECODE_STEPS, k3_launches_mesh=k31,
+            k3_launches_meshless=k30, want_k3=cfg.num_layers,
+            greedy_tokens_equal=tokens_ok,
+            greedy_agreement=float(same.float().mean()),
+            clear_choices=int(clear.sum()), choices=int(clear.numel()),
+            prefill_logits_max_abs_err=pre_err,
+            prefill_tol=dict(atol=atol, rtol=rtol),
+            decode_logits_max_abs_err=dec_err,
+            decode_tol=dict(atol=d_atol, rtol=d_rtol),
+            decode_ms_per_step_meshless=ms0, decode_ms_per_step_mesh=ms1)
+        if k31 != cfg.num_layers or k30 != cfg.num_layers or not ok:
+            raise AssertionError("the mesh's prefill and decode differ")
+        out["flash_attention"] = k31
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- mixtral's sorted dispatch on the local shards
+        arch, b, s = MESH_MOE
+        cfg = get_config(arch).replace(num_layers=MOE_PARITY_LAYERS)
+        params = api.init_params(cfg, devmod.generator(0, dev), dev)
+        toks = torch.from_numpy(gen(22).integers(
+            1, cfg.vocab_size, (b, s))).to(dev)
+        from repro_torch.models import transformer as tfm
+        res = {}
+        with torch.inference_mode():
+            for placed in (False, True):
+                c = cfg.replace(moe_impl="sorted_shmap" if placed
+                                else "sorted")
+                p = pm.distribute(params, api.param_shardings(c, mesh)) \
+                    if placed else params
+                with shd.use_mesh(mesh if placed else None):
+                    h, _, aux = tfm.forward_hidden(
+                        c, p, tfm.embed_inputs(c, p, {"tokens": toks}))
+                res[placed] = tuple(t.full_tensor() if shd.is_dtensor(t)
+                                    else t for t in (h, aux))
+        (h0, a0), (h1, a1) = res[False], res[True]
+        same = bool(torch.equal(h0, h1)) and bool(torch.equal(a0, a1))
+        say("mesh", check="moe_sorted_shmap", arch=cfg.name,
+            layers=cfg.num_layers, batch=b, seq=s, outputs_equal=same,
+            max_abs_err=float((h1.float() - h0.float()).abs().max()),
+            aux=[float(a0), float(a1)])
+        if not same:
+            raise AssertionError("sorted_shmap on the mesh differs from "
+                                 "sorted without one")
+        del params, res, h0, h1
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        dist.destroy_process_group()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the dry-run on a fake world (a process of its own)
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARGS = ("--arch", "qwen3-0.6b", "--arch", "mixtral-8x7b", "--mesh",
+               "both")
+DRYRUN_CELLS = 14          # (3 + 4 applicable shapes) x 2 meshes
+DRYRUN_TIMEOUT_S = 600     # 174-187 s beside [mesh] on the card machine
+
+
+def _dryrun_cores():
+    """(the dry-run's cores, this process's): the last core of this
+    process's set with its hyperthread siblings, and every other core."""
+    cpus = set(os.sched_getaffinity(0))
+    last = max(cpus)
+    own = {last}
+    try:
+        with open(f"/sys/devices/system/cpu/cpu{last}/topology/"
+                  "thread_siblings_list") as f:
+            for part in f.read().strip().split(","):
+                lo, _, hi = part.partition("-")
+                own.update(range(int(lo), int(hi or lo) + 1))
+    except OSError:
+        pass
+    own &= cpus
+    return own, (cpus - own) or cpus
+
+
+def _pin_threads(cpus) -> None:
+    """Every thread of this process onto ``cpus``."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cpus)
+        except OSError:
+            pass
+
+
+def start_dryrun(cores):
+    """Phase 12 (``[dryrun]``) starts after phase 10: ``python -m
+    repro_torch.launch.dryrun`` in a subprocess of its own (its fake world
+    of 256 / 512 ranks cannot share a process with a real process group),
+    on ``cores`` while the card runs phase 11."""
+    import tempfile
+    import time
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), env.get("PYTHONPATH", "")])
+    d = tempfile.mkdtemp(dir=ROOT, prefix=".dryrun_")
+    log = open(os.path.join(d, "log.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+         "--out", os.path.join(d, "dryrun.json")],
+        stdout=log, stderr=subprocess.STDOUT, text=True, env=env,
+        preexec_fn=lambda: os.sched_setaffinity(0, cores))
+    return proc, d, log, time.perf_counter()
+
+
+def dryrun_phase(handle) -> dict:
+    """Phase 12: wait for the dry-run; every cell must be OK. Prints each
+    cell's per-device argument bytes, FLOPs, collective bytes and
+    seconds."""
+    import shutil
+    import time
+    proc, d, log, t0 = handle
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        log.close()
+        out = os.path.join(d, "dryrun.json")
+        cells = json.load(open(out)) if os.path.exists(out) else []
+        tail = open(os.path.join(d, "log.txt")).read()[-4000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    for c in cells:
+        say("dryrun", arch=c["arch"], shape=c["shape"], mesh=c["mesh"],
+            ok=c["ok"], argument_bytes_per_dev=(c["mem"] or {}).get(
+                "argument_bytes"), flops_per_dev=c["flops_per_dev"],
+            coll_bytes_per_dev=c["coll_bytes_per_dev"], lower_s=c["lower_s"])
+    say("dryrun", cells=len(cells), ok=sum(c["ok"] for c in cells),
+        wall_s=wall, returncode=rc)
+    if rc != 0 or len(cells) != DRYRUN_CELLS or not all(c["ok"]
+                                                        for c in cells):
+        raise AssertionError("dry-run failed:\n" + tail)
+    return {"cells": len(cells), "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible "
@@ -1976,28 +2355,40 @@ def main() -> int:
         cuda=torch.version.cuda)
 
     from decode_attention_cases import SERVING
-    build_kernels()
-    err_fa = check_flash()
-    err_ssd = check_ssd()
-    err_rg = check_rglru()
-    err_ps = check_policy_score()
-    err_da, k4_kernels = check_decode()
-    check_forecast()
-    t_fa, t_ssd, t_rg = time_flash(), time_ssd(), time_rglru()
-    t_da = time_decode()
-    t_ps = time_policy_score()
-    t_dec, t_cross = time_decision()
-    time_forecast()
-    policy_parity()
-    launches = {"admission": admission_stream()}
-    inspector_launches = inspector()
-    cache_launches = 0
-    for arch in MODELS:
-        launches[arch], n = run_model(arch)
-        cache_launches += n
-    for arch in API_MODELS:
-        launches[arch] = run_api_model(arch)
-    train()
+    dryrun, cpus = None, os.sched_getaffinity(0)
+    try:
+        build_kernels()
+        err_fa = check_flash()
+        err_ssd = check_ssd()
+        err_rg = check_rglru()
+        err_ps = check_policy_score()
+        err_da, k4_kernels = check_decode()
+        check_forecast()
+        t_fa, t_ssd, t_rg = time_flash(), time_ssd(), time_rglru()
+        t_da = time_decode()
+        t_ps = time_policy_score()
+        t_dec, t_cross = time_decision()
+        time_forecast()
+        policy_parity()
+        launches = {"admission": admission_stream()}
+        inspector_launches = inspector()
+        cache_launches = 0
+        for arch in MODELS:
+            launches[arch], n = run_model(arch)
+            cache_launches += n
+        for arch in API_MODELS:
+            launches[arch] = run_api_model(arch)
+        train()
+        # the dry-run's host work beside phase 11 only, on its own cores
+        own, rest = _dryrun_cores()
+        _pin_threads(rest)
+        dryrun = start_dryrun(own)
+        mesh_launches = mesh_phase()
+        dryrun_phase(dryrun)
+    finally:
+        if dryrun is not None and dryrun[0].poll() is None:
+            dryrun[0].kill()
+        _pin_threads(cpus)
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",
@@ -2018,7 +2409,9 @@ def main() -> int:
              s4096=t_fa["d128_4096"],
              mixtral=dict(
                  launches=launches["mixtral-8x7b"]["flash_attention"],
-                 max_abs_err=err_fa["mixtral"])),
+                 max_abs_err=err_fa["mixtral"]),
+             # one prefill on the mesh of one rank, through the wrapper
+             mesh=dict(launches=mesh_launches["flash_attention"])),
         dict(entry("flash_attention_d256", "flash_attention",
                    "src/repro/kernels/flash_attention.py:80",
                    launches["recurrentgemma-9b"]["flash_attention"],

@@ -14,9 +14,14 @@ copies every tensor to host NumPy before it returns or starts its writer
 thread, so the caller may reuse or overwrite its device tensors at once.
 bf16 (which NumPy lacks) is widened to f32 on save, as the reference widens
 it, and ``restore`` casts each array back to the dtype of the matching leaf
-of ``like``, on ``device``. The reference's ``restore(..., shardings=...)``
-places the tree on a (possibly different) device mesh; the port has no mesh
-yet (ROADMAP.md, Queue 1) and takes one device.
+of ``like``, on ``device``; ``restore(..., shardings=...)`` places each leaf
+on a (possibly different) device mesh instead, for elastic restarts.
+
+A tree of DTensors is saved collectively: every rank gathers each leaf
+(``full_tensor``, in the same order on every rank), rank 0 writes, and the
+ranks meet at a barrier once the checkpoint is complete (after the write;
+with ``async_save`` before the writer starts). The layout on disk is the
+same either way.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.params import tree_unflatten
 
@@ -49,7 +55,10 @@ def _flatten_with_paths(tree, prefix: str = ""):
 
 
 def _to_host(v) -> np.ndarray:
-    """A host copy of one leaf (bf16 widened to f32)."""
+    """A host copy of one leaf (bf16 widened to f32); a DTensor is gathered
+    whole first (a collective: every rank calls it)."""
+    if shd.is_dtensor(v):
+        v = v.full_tensor()
     if torch.is_tensor(v):
         dtype = torch.float32 if v.dtype == torch.bfloat16 else v.dtype
         return v.detach().to("cpu", dtype, copy=True).numpy()
@@ -69,13 +78,21 @@ class Checkpointer:
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None):
         keys, vals = _flatten_with_paths(tree)
         host_vals = [_to_host(v) for v in vals]
+        ranks = any(shd.is_dtensor(v) for v in vals)
+        if ranks and torch.distributed.get_rank() != 0:
+            torch.distributed.barrier()
+            return
         if self.async_save:
             self.wait()
+            if ranks:
+                torch.distributed.barrier()
             self._thread = threading.Thread(
                 target=self._write, args=(step, keys, host_vals, extra))
             self._thread.start()
         else:
             self._write(step, keys, host_vals, extra)
+            if ranks:
+                torch.distributed.barrier()
 
     def _write(self, step: int, keys: List[str], vals, extra):
         tmp = os.path.join(self.dir, f"step_{step}.tmp")
@@ -119,22 +136,36 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, device: DeviceLike = None) -> Any:
+    def restore(self, step: int, like: Any, device: DeviceLike = None,
+                shardings: Any = None) -> Any:
         """Restore into the structure of ``like``: each leaf that is a
         tensor there comes back as a new tensor of its dtype on ``device``
-        (default: that leaf's device); any other leaf as a NumPy array."""
+        (default: that leaf's device); any other leaf as a NumPy array.
+
+        With ``shardings`` (a tree of ``sharding.NamedSharding`` shaped like
+        ``like``, e.g. ``model_api.param_shardings``) each tensor leaf comes
+        back as a DTensor on that mesh and placement, which may differ from
+        the mesh that saved it; every rank reads the file and keeps its own
+        slice (on ``device``, by default the mesh's device type)."""
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         keys_new, vals_like = _flatten_with_paths(like)
+        shs = (_flatten_with_paths(shardings)[1] if shardings is not None
+               else [None] * len(vals_like))
         out = []
         with np.load(os.path.join(path, "arrays.npz")) as data:
             by_key = {k: f"a{i}" for i, k in enumerate(manifest["keys"])}
-            for k, v in zip(keys_new, vals_like):
+            for k, v, sh in zip(keys_new, vals_like, shs):
                 if k not in by_key:
                     raise KeyError(f"checkpoint missing key {k}")
                 arr = data[by_key[k]]
-                if torch.is_tensor(v):
+                if torch.is_tensor(v) and sh is not None:
+                    dev = (resolve(device) if device is not None
+                           else torch.device(sh.mesh.device_type))
+                    t = torch.from_numpy(arr).to(device=dev, dtype=v.dtype)
+                    out.append(shd.distribute(t, sh))
+                elif torch.is_tensor(v):
                     dev = v.device if device is None else resolve(device)
                     out.append(torch.from_numpy(arr).to(device=dev,
                                                         dtype=v.dtype))

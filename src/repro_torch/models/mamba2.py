@@ -19,11 +19,13 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.params import Spec, stack, tree_index
+from repro_torch.sharding import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -141,13 +143,19 @@ def ssm_block(cfg: ModelConfig, p: Dict, x_in: torch.Tensor,
     di, nh, pdim = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
     g, n = cfg.ssm_ngroups, cfg.ssm_state
     kw = cfg.ssm_conv_width - 1
-    h = nn.rmsnorm(x_in, p["ln"])
+    h = nn.pre_norm(x_in, p["ln"])
     z = h @ p["wz"]
     x_pre, B_pre, C_pre = h @ p["wx"], h @ p["wB"], h @ p["wC"]
     x = F.silu(nn.causal_conv1d(x_pre, p["conv_x"]))
     Bm = F.silu(nn.causal_conv1d(B_pre, p["conv_B"]))
     Cm = F.silu(nn.causal_conv1d(C_pre, p["conv_C"]))
     dt = F.softplus((h @ p["wdt"]).float() + p["dt_bias"].float())
+    x = constrain(x, "batch", None, "ssm_inner")
+    # on a mesh the scan runs on each rank's batch rows and heads, the
+    # sequence whole (the chunked scan splits it into chunks)
+    dt = constrain(dt, "batch", None, "ssm_inner")
+    Bm = constrain(Bm, "batch", None, None)
+    Cm = constrain(Cm, "batch", None, None)
     A = -torch.exp(p["A_log"].float())
     # pad the sequence to a chunk multiple; dt=0 on padding makes it inert
     # (decay exp(0)=1, contribution dt*x=0), so states/outputs are exact
@@ -157,20 +165,30 @@ def ssm_block(cfg: ModelConfig, p: Dict, x_in: torch.Tensor,
                          for t in (x, Bm, Cm, dt))
     if cfg.use_pallas:
         y, final = kops.ssd_scan(
-            x.reshape(b, s_pad, nh, pdim), dt, A,
-            Bm.reshape(b, s_pad, g, n), Cm.reshape(b, s_pad, g, n),
+            shd.split_heads(x, nh, pdim), dt, A,
+            shd.split_heads(Bm, g, n), shd.split_heads(Cm, g, n),
             chunk=min(cfg.ssm_chunk, s_pad))
     else:
-        res = ssd_chunked(x.reshape(b, s_pad, nh, pdim), dt, A,
-                          Bm.reshape(b, s_pad, g, n),
-                          Cm.reshape(b, s_pad, g, n),
-                          cfg.ssm_chunk, return_final_state=collect_state)
+        args = (shd.split_heads(x, nh, pdim), dt, A,
+                shd.split_heads(Bm, g, n), shd.split_heads(Cm, g, n))
+        if shd.is_dtensor(x):
+            # on a mesh: each rank's batch rows and heads, as the kernel
+            # route (the scan treats them independently)
+            res = shd.local_shards(
+                "ssd_chunked", lambda *a: ssd_chunked(
+                    *a, cfg.ssm_chunk, return_final_state=collect_state),
+                args, (("b", None, "h", None), ("b", None, "h"), ("h",),
+                       ("b", None, "g", None), ("b", None, "g", None)),
+                ({0: 0, 2: 2}, {0: 0, 2: 1})[:1 + collect_state])
+        else:
+            res = ssd_chunked(*args, cfg.ssm_chunk,
+                              return_final_state=collect_state)
         y, final = res if collect_state else (res, None)
     y = y + (p["D"].float()[None, None, :, None]
-             * x.float().reshape(b, s_pad, nh, pdim))
+             * shd.split_heads(x.float(), nh, pdim))
     y = y.reshape(b, s_pad, di)[:, :s].to(x_in.dtype)
     y = nn.rmsnorm(y * F.silu(z), p["norm"])
-    out = x_in + y @ p["wo"]
+    out = x_in + nn.to_residual(cfg, y @ p["wo"])
     if collect_state:
         state = {"h": final,
                  "conv_x": x_pre[:, -kw:, :].float(),
@@ -185,8 +203,10 @@ def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
     """Run the layer stack. Returns (hidden, None, aux loss 0.0), as the JAX
     package's: the family has no kv. With ``remat`` each layer runs under
     ``transformer._remat``'s checkpointing."""
+    seq_ax = "seq_sp" if cfg.seq_parallel else None
+
     def body(x, p):
-        return ssm_block(cfg, p, x)
+        return constrain(ssm_block(cfg, p, x), "batch", seq_ax, "embed")
 
     fn = tfm._remat(cfg, body) if remat else body
     x = embeds
@@ -244,11 +264,13 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
     del context_len                                      # O(1) state
     tok = batch["tokens"]
     b, s = tok.shape
-    x = params["embed"][tok]
+    x = nn.embed(params["embed"], tok)
+    seq_ax = "seq_sp" if cfg.seq_parallel else None
     states = []
     for i in range(cfg.num_layers):
         x, st = ssm_block(cfg, tree_index(params["layers"], i), x,
                           collect_state=True)
+        x = constrain(x, "batch", seq_ax, "embed")
         states.append(st)
     x = nn.rmsnorm(x, params["final_norm"])
     logits = tfm.logits_fn(cfg, params, x[:, -1:, :])
@@ -265,7 +287,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
     The JAX package builds a new state each step; at full width and batch 4
     that is 0.67 GB of ``h`` rewritten per token."""
     tok = batch["token"]
-    x = params["embed"][tok]                             # (B,1,D)
+    x = nn.embed(params["embed"], tok)                   # (B,1,D)
     b = x.shape[0]
     di, nh, pdim = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
     g, n = cfg.ssm_ngroups, cfg.ssm_state
@@ -283,9 +305,9 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
         dt = F.softplus((hh @ p["wdt"]).float()
                         + p["dt_bias"].float())          # (B,H)
         A = -torch.exp(p["A_log"].float())
-        xh = xs.float().reshape(b, nh, pdim)
-        Bh = Bs.float().reshape(b, g, n).repeat_interleave(nh // g, dim=1)
-        Ch = Cs.float().reshape(b, g, n).repeat_interleave(nh // g, dim=1)
+        xh = shd.split_heads(xs.float(), nh, pdim)
+        Bh, Ch = (shd.split_heads(t.float(), g, n).repeat_interleave(
+            nh // g, dim=1) for t in (Bs, Cs))
         decay = torch.exp(dt * A)                        # (B,H)
         hst = (cache["h"][i] * decay[:, :, None, None]
                + (dt[:, :, None] * xh)[..., None] * Bh[:, :, None, :])

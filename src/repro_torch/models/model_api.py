@@ -4,13 +4,16 @@ package's ``models/model_api.py``: every family of the JAX package is wired
 the SSM through ``mamba2``, encoder-decoder through ``whisper``).
 
   model_specs(cfg)                       -> Spec tree
+  abstract_params(cfg)                   -> meta tensors (no storage)
   init_params(cfg, generator, device)    -> materialized params
+  param_shardings / param_pspecs(cfg, mesh) -> where each leaf lives
   param_count(cfg)                       -> int
   loss_fn(cfg, params, batch)            -> (scalar loss, metrics)
   prefill(cfg, params, batch)            -> (logits, cache)
   decode_step(cfg, params, cache, batch) -> (logits, cache)
-  cache_specs / init_cache
+  cache_specs / init_cache / abstract_cache / cache_shardings / cache_pspecs
   make_batch(cfg, shape, rng, device)    -> concrete batch
+  batch_specs / decode_batch_specs / input_specs / batch_shardings
 
 The serving engine feeds ``tokens`` and ``prompt_lens`` only, as the JAX
 engine does, so it serves the dense, MoE, hybrid and SSM families; the VLM
@@ -19,7 +22,7 @@ engine does, so it serves the dense, MoE, hybrid and SSM families; the VLM
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,9 +30,11 @@ import torch
 from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
                                       InputShape, ModelConfig)
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.models import layers as nn
 from repro_torch.models import params as pm
 from repro_torch.models import mamba2, rglru, whisper
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding import constrain, settle
 
 _FAMILY_MODULES = {DENSE: tfm, MOE: tfm, VLM: tfm, HYBRID: rglru,
                    SSM: mamba2, ENCDEC: whisper}
@@ -43,12 +48,31 @@ def model_specs(cfg: ModelConfig):
     return _mod(cfg).model_specs(cfg)
 
 
+def abstract_params(cfg: ModelConfig):
+    return pm.abstract(model_specs(cfg), torch.bfloat16)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None):
     """Random-init bf16 parameters drawn from ``generator``, placed on
     ``device`` (the card unless the caller asks for the CPU)."""
     return pm.init(model_specs(cfg), generator, torch.bfloat16,
                    resolve(device))
+
+
+def _sharding_specs(cfg: ModelConfig):
+    tree = model_specs(cfg)
+    if cfg.param_fsdp:
+        tree = pm.tree_map(pm.fsdp_spec, tree)
+    return tree
+
+
+def param_shardings(cfg: ModelConfig, mesh):
+    return pm.shardings(_sharding_specs(cfg), mesh)
+
+
+def param_pspecs(cfg: ModelConfig, mesh):
+    return pm.pspecs(_sharding_specs(cfg), mesh)
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -62,7 +86,8 @@ def _lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
     log-sum-exp taken over f32 logits."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = settle(torch.gather(logits, -1, labels.long()[..., None]))
+    gold = gold[..., 0]
     ce = (lse - gold) * mask
     return ce.sum() / torch.clamp(mask.sum(), min=1.0)
 
@@ -87,7 +112,8 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
         if cfg.family == VLM:                    # loss over text positions
             h = h[:, cfg.n_img_tokens:, :]
     elif cfg.family in (HYBRID, SSM):
-        embeds = params["embed"][batch["tokens"]]
+        embeds = constrain(nn.embed(params["embed"], batch["tokens"]),
+                           "batch", None, "embed")
         h, _, aux = _mod(cfg).forward_hidden(cfg, params, embeds,
                                              remat=remat)
     else:
@@ -116,9 +142,68 @@ def init_cache(cfg: ModelConfig, batch_size: int, context_len: int,
                                 device=resolve(device))
 
 
+def abstract_cache(cfg: ModelConfig, batch_size: int, context_len: int):
+    """Meta tensors with the shapes and dtypes ``init_cache`` gives."""
+    return init_cache(cfg, batch_size, context_len, device="meta")
+
+
+def cache_shardings(cfg: ModelConfig, mesh, batch_size: int,
+                    context_len: int):
+    return pm.shardings(cache_specs(cfg, batch_size, context_len), mesh)
+
+
+def cache_pspecs(cfg: ModelConfig, mesh, batch_size: int, context_len: int):
+    return pm.pspecs(cache_specs(cfg, batch_size, context_len), mesh)
+
+
 # ------------------------------------------------------------- inputs ------
 def _text_len(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len - cfg.n_img_tokens if cfg.family == VLM else seq_len
+
+
+def batch_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, pm.Spec]:
+    """Spec tree for a train/prefill batch (decode handled separately)."""
+    b = shape.global_batch
+    s = _text_len(cfg, shape.seq_len)
+    out = {"tokens": pm.Spec((b, s), ("batch", None), "zeros")}
+    if shape.kind == "train":
+        out["labels"] = pm.Spec((b, s), ("batch", None), "zeros")
+        out["mask"] = pm.Spec((b, s), ("batch", None), "ones")
+    if cfg.family == VLM:
+        out["image_embeds"] = pm.Spec((b, cfg.n_img_tokens, cfg.d_model),
+                                      ("batch", None, "embed"))
+    if cfg.family == ENCDEC:
+        out["frames"] = pm.Spec((b, cfg.n_enc_frames, cfg.d_model),
+                                ("batch", None, "embed"))
+    return out
+
+
+def decode_batch_specs(cfg: ModelConfig, shape: InputShape):
+    return {"token": pm.Spec((shape.global_batch, 1), ("batch", None),
+                             "zeros")}
+
+
+# the JAX package's batch dtypes (token ids int32): what ``input_specs``
+# declares, so that a dry-run's argument bytes compare with the reference's;
+# ``make_batch`` feeds int64 ids, which indexing takes as they are
+_BATCH_DTYPES = {"tokens": torch.int32, "labels": torch.int32,
+                 "token": torch.int32, "mask": torch.float32,
+                 "image_embeds": torch.bfloat16, "frames": torch.bfloat16}
+
+
+def _batch_tree(cfg: ModelConfig, shape: InputShape):
+    return (decode_batch_specs(cfg, shape) if shape.kind == "decode"
+            else batch_specs(cfg, shape))
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    """Meta-tensor stand-ins of a batch (no storage)."""
+    return {k: torch.empty(s.shape, dtype=_BATCH_DTYPES[k], device="meta")
+            for k, s in _batch_tree(cfg, shape).items()}
+
+
+def batch_shardings(cfg: ModelConfig, mesh, shape: InputShape):
+    return pm.shardings(_batch_tree(cfg, shape), mesh)
 
 
 def make_batch(cfg: ModelConfig, shape: InputShape,

@@ -15,10 +15,10 @@ take capacity, as in the JAX package (they come after the prompt's tokens,
 so they only ever take slots no prompt token wanted; the capacity itself
 follows the padded length).
 
-The JAX package's "sorted_shmap" runs the sorted dispatch under shard_map
-on a device mesh and falls back to the plain sorted dispatch without one;
-one card has no mesh, so here it is the sorted dispatch, and the mesh-only
-body ``_sorted_shard_map`` raises.
+"sorted_shmap" runs the sorted dispatch on each data-parallel shard's
+local tokens (``_sorted_shard_map``, the JAX package's shard_map body) and
+falls back to the plain sorted dispatch where the JAX package does: no
+mesh, a batch that does not divide the data axes, or experts sharded.
 """
 from __future__ import annotations
 
@@ -27,8 +27,10 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import Spec
+from repro_torch.sharding import constrain
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -71,9 +73,11 @@ def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(cfg, s)
+    if cfg.moe_impl == "sorted_shmap":
+        return _sorted_shard_map(cfg, p, x)
     _, top_p, top_i, aux = route(cfg, p, x)
 
-    if cfg.moe_impl in ("sorted", "sorted_shmap"):
+    if cfg.moe_impl == "sorted":
         return _sorted_dispatch(cfg, p, x, top_p, top_i, cap), aux
 
     # Position of each (token, choice) inside its expert's buffer.
@@ -93,8 +97,10 @@ def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor
                ).sum(dim=2)                                   # (B,S,E,C)
 
     xe = torch.einsum("bsd,bsec->ebcd", x, dispatch)          # (E,B,C,D)
+    xe = constrain(xe, "experts", "batch", None, "embed")
     h = F.silu(torch.einsum("ebcd,edf->ebcf", xe, p["wi"]))
     h = h * torch.einsum("ebcd,edf->ebcf", xe, p["wg"])
+    h = constrain(h, "experts", "batch", None, "expert_mlp")
     ye = torch.einsum("ebcf,efd->ebcd", h, p["wo"])           # (E,B,C,D)
     y = torch.einsum("ebcd,bsec->bsd", ye, combine)
     return y, aux
@@ -139,14 +145,60 @@ def _group_sorted(cfg: ModelConfig, wi, wg, wo, xg, pg, ig, cap: int):
     return y.index_put_((rows, st), out_choice.to(xg.dtype), accumulate=True)
 
 
-def _sorted_shard_map(*args, **kwargs):
-    """The JAX package's sorted dispatch under shard_map on a device mesh
-    (every scatter and gather local to a data-parallel shard). It runs there
-    only under a mesh; one card has none, so ``moe_block`` takes the plain
-    sorted dispatch, as the JAX package does without a mesh."""
-    raise NotImplementedError(
-        "the sharded MoE dispatch needs a multi-card mesh, which the port "
-        "does not have yet (see ROADMAP.md, Queue 1)")
+def _sorted_shard_map(cfg: ModelConfig, p: Dict, x: torch.Tensor):
+    """Sorted dispatch on each rank's local tokens: every scatter and
+    gather runs local to the data-parallel shard, so the dispatch buffers
+    are never gathered across ranks.
+
+    Requires the mixtral-style layout (experts replicated, per-expert ffn
+    dim sharded over "model"); falls back to the plain sorted dispatch
+    without a mesh, when the batch does not divide the dp axes, or when the
+    experts are sharded. The body's partial sums over "model" (the ffn dim)
+    and its per-shard aux losses leave it as ``Partial`` placements, which
+    are reduced on the way out (the reference's psum and pmean), so that
+    autograd runs through the reductions.
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = shd.current_mesh()
+    b = x.shape[0]
+    e = cfg.n_experts
+    cap = _capacity(cfg, x.shape[1])
+    dp = shd.dp_axes(mesh) if mesh is not None else ()
+    shape = shd.mesh_shape(mesh) if mesh is not None else {}
+    dp_size = 1
+    for a in dp:
+        dp_size *= shape[a]
+    model = shape.get("model", 1)
+    experts_sharded = mesh is not None and e % model == 0 and model > 1
+    if mesh is None or b % max(dp_size, 1) != 0 or experts_sharded:
+        # no mesh / ragged batch / EP layout: the plain paths handle it
+        _, top_p, top_i, aux = route(cfg, p, x)
+        return _sorted_dispatch(cfg, p, x, top_p, top_i, cap), aux
+
+    def local(xl, router, wi, wg, wo):
+        _, top_p, top_i, aux_l = route(cfg, {"router": router}, xl)
+        y = _group_sorted(cfg, wi, wg, wo, xl, top_p.to(xl.dtype), top_i,
+                          cap)
+        return y, aux_l / dp_size
+
+    names = shd.axis_names(mesh)
+
+    def on(dp_p, model_p):
+        return tuple(dp_p if a in dp else model_p if a == "model"
+                     else Replicate() for a in names)
+
+    rows = (dp, None, None)
+    wspec = (None, None, "model")
+    out = shd.shard_map(
+        local, mesh,
+        in_specs=(rows, (), wspec, wspec, (None, "model", None)),
+        out_specs=[on(Shard(0), Partial()), on(Partial(), Replicate())],
+        in_grad_specs=(on(Shard(0), Partial()), on(Partial(), Partial()),
+                       on(Partial(), Shard(2)), on(Partial(), Shard(2)),
+                       on(Partial(), Shard(1))),
+    )(x, p["router"], p["wi"], p["wg"], p["wo"])
+    return tuple(shd.settle(t) for t in out)
 
 
 def _sorted_dispatch(cfg: ModelConfig, p: Dict, x: torch.Tensor,

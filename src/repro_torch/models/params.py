@@ -13,6 +13,8 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding as shd
+
 
 class Spec(NamedTuple):
     shape: Tuple[int, ...]
@@ -61,6 +63,25 @@ def stack(n: int, tree):
     return tree_map(
         lambda s: Spec((n,) + s.shape, ("layers",) + s.axes, s.init, s.scale),
         tree)
+
+
+def abstract(tree, dtype=torch.bfloat16):
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), tree)
+
+
+def shardings(tree, mesh):
+    return tree_map(lambda s: shd.named_sharding(mesh, s.shape, s.axes), tree)
+
+
+def pspecs(tree, mesh):
+    return tree_map(lambda s: shd.spec_for(mesh, s.shape, s.axes), tree)
+
+
+def distribute(tree, sharding_tree):
+    """Every leaf of ``tree`` (the same full tensors on every rank) placed
+    by the matching leaf of ``sharding_tree``."""
+    return tree_map(shd.distribute, tree, sharding_tree)
 
 
 # (low, high, transform) of the uniform initialisers, as in the JAX package's
@@ -133,3 +154,19 @@ def init(tree, generator: torch.Generator, dtype=torch.bfloat16,
 
 def count(tree) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(tree))
+
+
+def fsdp_spec(s: Spec) -> Spec:
+    """Add the data-parallel ("zero") axis to the largest effectively-
+    replicated dim — FSDP-style parameter sharding (and the ZeRO-1 transform
+    for optimizer states). Needed to FIT models like llama3-405b whose
+    tensor-parallel-only shards exceed a device's memory."""
+    axes = list(s.axes)
+    best, best_dim = None, 0
+    for i, (d, a) in enumerate(zip(s.shape, axes)):
+        replicated = a is None or not any(shd.RULES.get(a, ()))
+        if replicated and d > best_dim:
+            best, best_dim = i, d
+    if best is not None:
+        axes[best] = "zero"
+    return Spec(s.shape, tuple(axes), s.init, s.scale)

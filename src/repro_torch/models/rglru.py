@@ -31,6 +31,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.params import Spec, stack, tree_index
+from repro_torch.sharding import constrain, merge_heads
 
 C_RGLRU = 8.0  # Griffin's fixed gate sharpness
 _gelu = functools.partial(F.gelu, approximate="tanh")
@@ -126,6 +127,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                use_pallas: bool = False) -> torch.Tensor:
     """Linear recurrence h_t = a_t*h_{t-1} + b_t along axis 1."""
     if use_pallas:
+        # on a mesh the kernel runs on each rank's batch rows and columns
+        a = constrain(a, "batch", None, "lru")
+        b = constrain(b, "batch", None, "lru")
         s, w = a.shape[1], a.shape[2]
         return kops.rglru_scan(a, b, chunk=min(64, s),
                                width_block=min(128, w))
@@ -139,25 +143,29 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     return b
 
 
-def _rec_with_state(cfg: ModelConfig, p: Dict, x: torch.Tensor):
+def _rec_with_state(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                    lru_constrain: bool = False):
     """A recurrent block, returning its decode state too (the JAX package's
     ``rec_with_state``, the duplicate of ``rec_block`` inside
-    ``forward_hidden``)."""
+    ``forward_hidden``). ``rec_block`` also constrains the conv output to
+    the "lru" axis, as the JAX package's does."""
     kw = cfg.conv_width - 1
-    h = nn.rmsnorm(x, p["ln"])
+    h = nn.pre_norm(x, p["ln"])
     bx_pre = h @ p["wx"]
     by = _gelu(h @ p["wy"])
     bx = nn.causal_conv1d(bx_pre, p["conv_w"])
+    if lru_constrain:
+        bx = constrain(bx, "batch", None, "lru")
     a, bb = rglru_gates(p, bx)
     hs = rglru_scan(a, bb, cfg.use_pallas)
-    x = x + (hs.to(x.dtype) * by) @ p["wo"]
-    h2 = nn.rmsnorm(x, p["mlp_ln"])
-    x = x + nn.gated_mlp(h2, act=_gelu, **p["mlp"])
+    x = x + nn.to_residual(cfg, (hs.to(x.dtype) * by) @ p["wo"])
+    h2 = nn.pre_norm(x, p["mlp_ln"])
+    x = x + nn.to_residual(cfg, nn.gated_mlp(h2, act=_gelu, **p["mlp"]))
     return x, {"h": hs[:, -1, :], "conv": bx_pre[:, -kw:, :]}
 
 
 def rec_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return _rec_with_state(cfg, p, x)[0]
+    return _rec_with_state(cfg, p, x, lru_constrain=True)[0]
 
 
 def _local_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -167,8 +175,8 @@ def _local_cfg(cfg: ModelConfig) -> ModelConfig:
 def attn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                positions: torch.Tensor) -> Tuple[torch.Tensor, Tuple]:
     x, kv = tfm.attn_block(_local_cfg(cfg), p, x, positions)
-    h2 = nn.rmsnorm(x, p["ln2"])
-    return x + nn.gated_mlp(h2, act=_gelu, **p["mlp"]), kv
+    h2 = nn.pre_norm(x, p["ln2"])
+    return x + nn.to_residual(cfg, nn.gated_mlp(h2, act=_gelu, **p["mlp"])), kv
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +202,8 @@ def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
         x, st1 = _rec_with_state(cfg, p["rec1"], x)
         x, st2 = _rec_with_state(cfg, p["rec2"], x)
         x, kv = attn_block(cfg, p["attn"], x, positions)
+        x = constrain(x, "batch", "seq_sp" if cfg.seq_parallel else None,
+                      "embed")
         return x, st1, st2, kv
 
     fn = tfm._remat(cfg, body) if remat else body
@@ -230,7 +240,7 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
     b, s = tok.shape
     context_len = context_len if context_len is not None else s
     x, (states, tail_states), _ = forward_hidden(
-        cfg, params, params["embed"][tok], collect_state=True)
+        cfg, params, nn.embed(params["embed"], tok), collect_state=True)
     logits = tfm.logits_fn(cfg, params, x[:, -1:, :])
     cache = init_cache(cfg, b, context_len, device=tok.device)
     cap = cache["k"].shape[2]
@@ -239,8 +249,9 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
         cache[r]["h"] = states[r]["h"]
         cache[r]["conv"] = states[r]["conv"].to(torch.bfloat16)
     k_stack, v_stack = states["kv"]             # (NS,B,S,KH,Dh)
-    cache["k"][:, :, :keep] = k_stack[:, :, s - keep:]
-    cache["v"][:, :, :keep] = v_stack[:, :, s - keep:]
+    axes = cache_specs(cfg, b, context_len)["k"].axes
+    for key, st in (("k", k_stack), ("v", v_stack)):
+        cache[key] = nn.fill_cache(cache[key], st[:, :, s - keep:], axes)
     cache["k_pos"][:, :keep] = torch.arange(s - keep, s, dtype=torch.int32,
                                             device=tok.device)[None, :]
     cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=tok.device)
@@ -326,8 +337,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
     tensors (a state's dtype may change, as in the JAX package: an f32
     conv input promotes the bf16 conv buffer to f32)."""
     tok = batch["token"]
-    x = params["embed"][tok]
-    b = x.shape[0]
+    x = nn.embed(params["embed"], tok)
     pos = cache["pos"]                                   # (B,)
     positions = pos[:, None]
     cap = cache["k"].shape[2]
@@ -350,7 +360,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
         vc = nn.masked_cache_update(cache["v"][i], v, slot)
         ctx = nn.attend(q, kc, vc, positions, k_pos, causal=True,
                         window=cfg.local_window)
-        x = x + tfm._matmul(ctx.reshape(b, 1, cfg.q_dim), pa["attn"]["wo"])
+        x = x + tfm._matmul(merge_heads(ctx), pa["attn"]["wo"])
         h2 = nn.rmsnorm(x, pa["ln2"])
         x = x + nn.gated_mlp(h2, act=_gelu, **pa["mlp"])
     new_cache = dict(cache)

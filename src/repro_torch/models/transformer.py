@@ -14,8 +14,11 @@ way, as in the JAX package. The MoE family's feed-forward is
 ``moe.moe_block``; its load-balancing loss is summed by ``forward_hidden``
 and ignored by ``prefill`` and ``decode_step``.
 
-The JAX package's shard_map flash decode over a sequence-sharded cache needs
-a device mesh and is not ported yet (ROADMAP.md, Queue 1).
+On a device mesh (``sharding.use_mesh``) the tensors are DTensors and
+``constrain`` places the activations where the JAX package does. With
+``decode_impl="shmap_flash"`` decode runs ``_flash_decode_shmap``, the split-K
+flash decode over the sequence-sharded cache, under the JAX package's
+conditions.
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import Spec, stack, tree_index
+from repro_torch import sharding as shd
+from repro_torch.sharding import constrain, merge_heads, split_heads
 
 
 # ---------------------------------------------------------------------------
@@ -99,10 +104,9 @@ def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _project_qkv(cfg: ModelConfig, p: Dict, h: torch.Tensor,
                  positions: torch.Tensor):
-    b, s, _ = h.shape
-    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = split_heads(h @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = split_heads(h @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(h @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = nn.qk_norm(q, p["q_norm"])
         k = nn.qk_norm(k, p["k_norm"])
@@ -114,9 +118,13 @@ def _project_qkv(cfg: ModelConfig, p: Dict, h: torch.Tensor,
 def attn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                positions: torch.Tensor) -> Tuple[torch.Tensor, Tuple]:
     """Self-attention over the in-context sequence (prefill)."""
-    h = nn.rmsnorm(x, p["ln1"])
+    h = nn.pre_norm(x, p["ln1"])
     q, k, v = _project_qkv(cfg, p["attn"], h, positions)
+    q = constrain(q, "batch", None, "heads", None)
     if cfg.use_pallas:
+        # on a mesh the kernel runs on each rank's batch rows and heads
+        k = constrain(k, "batch", None, "heads", None)
+        v = constrain(v, "batch", None, "heads", None)
         blk = min(128, q.shape[1])
         ctx = kops.flash_attention(q, k, v, causal=cfg.causal,
                                    window=cfg.sliding_window,
@@ -125,20 +133,19 @@ def attn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         ctx = nn.chunked_attention(q, k, v, causal=cfg.causal,
                                    window=cfg.sliding_window,
                                    q_chunk=cfg.attn_q_chunk)
-    b, s, _, _ = ctx.shape
-    out = _matmul(ctx.reshape(b, s, cfg.q_dim), p["attn"]["wo"])
-    return x + out, (k, v)
+    out = _matmul(merge_heads(ctx), p["attn"]["wo"])
+    return x + nn.to_residual(cfg, out), (k, v)
 
 
 def ffn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor):
     """Returns (x + ffn(x), aux loss): the MoE block's load-balancing loss,
     or 0.0 (a Python float: no launch on the card) for the dense MLP."""
-    h = nn.rmsnorm(x, p["ln2"])
+    h = nn.pre_norm(x, p["ln2"])
     if cfg.family == MOE:
         out, aux = moe_mod.moe_block(cfg, p["moe"], h)
     else:
         out, aux = nn.gated_mlp(h, **p["mlp"]), 0.0
-    return x + out, aux
+    return x + nn.to_residual(cfg, out), aux
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -173,11 +180,11 @@ def _remat(cfg: ModelConfig, fn: Callable) -> Callable:
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
-    tok = params["embed"][batch["tokens"]]
+    tok = nn.embed(params["embed"], batch["tokens"])
     if cfg.family == VLM:
         img = batch["image_embeds"].to(tok.dtype)          # (B, Nimg, D)
         tok = torch.cat([img, tok], dim=1)
-    return tok
+    return constrain(tok, "batch", None, "embed")
 
 
 def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
@@ -192,7 +199,8 @@ def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
     def body(x, p):
         x, kv = attn_block(cfg, p, x, positions)
         x, a = ffn_block(cfg, p, x)
-        return x, kv, a
+        seq_ax = "seq_sp" if cfg.seq_parallel else None
+        return constrain(x, "batch", seq_ax, "embed"), kv, a
 
     fn = _remat(cfg, body) if remat else body
     x, ks, vs = embeds, [], []
@@ -210,7 +218,8 @@ def forward_hidden(cfg: ModelConfig, params: Dict, embeds: torch.Tensor, *,
 
 def logits_fn(cfg: ModelConfig, params: Dict, h: torch.Tensor) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head
+    h = constrain(h, "batch", None, "embed")         # the sequence whole
+    return constrain(h @ head, "batch", None, "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -230,8 +239,9 @@ def cache_specs(cfg: ModelConfig, batch_size: int,
     the serving engine run continuous batching (each slot at its own decode
     position)."""
     cap = cache_capacity(cfg, context_len)
+    seq_ax = "kv_seq" if cfg.decode_seq_shard else None
     kv = Spec((cfg.num_layers, batch_size, cap, cfg.n_kv_heads, cfg.head_dim),
-              ("layers", "batch", "kv_seq", None, None), "zeros")
+              ("layers", "batch", seq_ax, None, None), "zeros")
     return {
         "k": kv,
         "v": kv,
@@ -295,8 +305,9 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
         # uniform prompt lengths: static slices into the bf16 cache
         logits = logits_fn(cfg, params, h[:, -1:, :])
         keep = min(s, cap)
-        cache["k"][:, :, :keep] = k_stack[:, :, s - keep:]
-        cache["v"][:, :, :keep] = v_stack[:, :, s - keep:]
+        axes = cache_specs(cfg, b, context_len)["k"].axes
+        for key, st in (("k", k_stack), ("v", v_stack)):
+            cache[key] = nn.fill_cache(cache[key], st[:, :, s - keep:], axes)
         pos = torch.arange(s - keep, s, dtype=torch.int32, device=dev)
         cache["k_pos"][:, :keep] = pos[None, :]
     else:
@@ -314,14 +325,60 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
     return logits, cache
 
 
-def _flash_decode_shmap(*args, **kwargs):
-    """The JAX package's split-K flash decode over a cache sharded on a
-    device mesh's "model" axis. It runs there only under such a mesh; one
-    card has none, so ``decode_step`` takes the unsharded branch, as the JAX
-    package does without a mesh."""
-    raise NotImplementedError(
-        "the sharded flash decode needs a multi-card mesh, which the port "
-        "does not have yet (see ROADMAP.md, Queue 1)")
+# ---------------------------------------------------------------------------
+# Split-K flash decode over the sequence-sharded cache (the JAX package's
+# shard_map body). Each "model" rank owns one slice of the cache: the token
+# write is a local per-row write into that slice, attention reduces the slice
+# with online-softmax partials, and a MAX and two SUM all-reduces over
+# "model" combine them (the split-K pattern of the decode kernel lifted to
+# the mesh, in plain torch products as the reference's einsums).
+# ---------------------------------------------------------------------------
+
+
+def _flash_decode_shmap(q, kc, vc, k_new, v_new, slot, pos, mesh):
+    """q: (B,1,H,Dh); kc/vc: (B,T,KH,Dh) seq-sharded over "model";
+    k_new/v_new: (B,1,KH,Dh); slot/pos: (B,). Returns (ctx, kc, vc); the
+    rank's cache slice is written IN PLACE.
+
+    Only used for full (non-rolling) caches, where slot index == position.
+    """
+    dp = shd.dp_axes(mesh)
+    h, dh = q.shape[2], q.shape[3]
+    kh = kc.shape[2]
+    g = h // kh
+    scale = dh ** -0.5
+
+    def local(q, kc, vc, k_new, v_new, slot, pos):
+        b_loc, t_loc = kc.shape[0], kc.shape[1]
+        off = shd.axis_index("model") * t_loc
+        rows = torch.arange(b_loc, device=kc.device)
+        slot_loc = slot.long() - off
+        own = (slot_loc >= 0) & (slot_loc < t_loc)
+        idx = torch.clamp(slot_loc, 0, t_loc - 1)
+        for c, new in ((kc, k_new), (vc, v_new)):
+            c[rows, idx] = torch.where(own[:, None, None],
+                                       new[:, 0].to(c.dtype), c[rows, idx])
+        j = off + torch.arange(t_loc, device=kc.device)[None, :]
+        valid = j <= pos[:, None]                             # (B,T_loc)
+        qr = q.reshape(b_loc, kh, g, dh)
+        s = torch.einsum("bkgd,btkd->bkgt", qr.float(), kc.float()) * scale
+        s = torch.where(valid[:, None, None, :], s, -1e30)
+        m = s.amax(dim=-1, keepdim=True)                      # (B,KH,G,1)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        acc = torch.einsum("bkgt,btkd->bkgd", p.to(vc.dtype), vc)
+        m_g = shd.pmax(m, "model")
+        w = torch.exp(m - m_g)
+        l_g = shd.psum(l * w, "model")
+        acc_g = shd.psum(acc.float() * w, "model")
+        out = acc_g / torch.clamp(l_g, min=1e-30)
+        return out.reshape(b_loc, 1, h, dh).to(q.dtype), kc, vc
+
+    row = (dp, None, None, None)
+    seq = (dp, "model", None, None)
+    return shd.shard_map(
+        local, mesh, in_specs=(row, seq, seq, row, row, (dp,), (dp,)),
+        out_specs=[row, seq, seq])(q, kc, vc, k_new, v_new, slot, pos)
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
@@ -333,8 +390,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
     tensors.
     """
     tok = batch["token"]
-    x = params["embed"][tok]                             # (B,1,D)
-    b = x.shape[0]
+    x = nn.embed(params["embed"], tok)                   # (B,1,D)
     pos = cache["pos"]                                   # (B,)
     positions = pos[:, None]
     cap = cache["k"].shape[2]
@@ -342,15 +398,24 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
     slots = torch.arange(cache["k_pos"].shape[1], device=pos.device)
     k_pos = torch.where(slots[None, :] == slot[:, None], pos[:, None],
                         cache["k_pos"])
+    mesh = shd.current_mesh()
+    use_shmap = (cfg.decode_impl == "shmap_flash" and mesh is not None
+                 and "model" in shd.axis_names(mesh)
+                 and cfg.sliding_window is None and cfg.decode_seq_shard
+                 and cap % shd.mesh_shape(mesh)["model"] == 0)
     for i in range(cfg.num_layers):
         p = tree_index(params["layers"], i)
         h = nn.rmsnorm(x, p["ln1"])
         q, k, v = _project_qkv(cfg, p["attn"], h, positions)
-        kc = nn.masked_cache_update(cache["k"][i], k, slot)
-        vc = nn.masked_cache_update(cache["v"][i], v, slot)
-        ctx = nn.attend(q, kc, vc, positions, k_pos, causal=True,
-                        window=cfg.sliding_window)
-        x = x + _matmul(ctx.reshape(b, 1, cfg.q_dim), p["attn"]["wo"])
+        if use_shmap:
+            ctx, _, _ = _flash_decode_shmap(q, cache["k"][i], cache["v"][i],
+                                            k, v, slot, pos, mesh)
+        else:
+            kc = nn.masked_cache_update(cache["k"][i], k, slot)
+            vc = nn.masked_cache_update(cache["v"][i], v, slot)
+            ctx = nn.attend(q, kc, vc, positions, k_pos, causal=True,
+                            window=cfg.sliding_window)
+        x = x + _matmul(merge_heads(ctx), p["attn"]["wo"])
         x, _ = ffn_block(cfg, p, x)
     x = nn.rmsnorm(x, params["final_norm"])
     logits = logits_fn(cfg, params, x)

@@ -31,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.params import Spec, stack, tree_index
+from repro_torch.sharding import constrain, merge_heads, split_heads
 
 _gelu = functools.partial(F.gelu, approximate="tanh")
 _matmul = tfm._matmul
@@ -81,36 +82,44 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def _res(y: torch.Tensor) -> torch.Tensor:
+    """A block's output in the residual stream's placement (batch-sharded,
+    as the JAX package constrains the stream): on a mesh the row-parallel
+    product's partial sums are reduced here, so that DTensor does not pick
+    a sequence shard for the stream by itself. Identity in value."""
+    return constrain(y, "batch", None, "embed")
+
+
 def _mlp2(p: Dict, x: torch.Tensor) -> torch.Tensor:
     return _matmul(_gelu(_matmul(x, p["wi"])), p["wo"])
 
 
 def _attn(cfg: ModelConfig, p: Dict, xq: torch.Tensor, xkv: torch.Tensor,
           q_pos, k_pos, causal: bool, rope: bool):
-    b, sq, _ = xq.shape
-    q = _matmul(xq, p["wq"]).reshape(b, sq, cfg.n_heads, cfg.head_dim)
-    k = _matmul(xkv, p["wk"]).reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
-    v = _matmul(xkv, p["wv"]).reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
+    q = split_heads(_matmul(xq, p["wq"]), cfg.n_heads, cfg.head_dim)
+    k = split_heads(_matmul(xkv, p["wk"]), cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(_matmul(xkv, p["wv"]), cfg.n_kv_heads, cfg.head_dim)
     if rope:
         q = nn.apply_rope(q, q_pos, cfg.rope_theta)
         k = nn.apply_rope(k, k_pos, cfg.rope_theta)
     ctx = nn.attend(q, k, v, q_pos, k_pos, causal=causal)
-    return _matmul(ctx.reshape(b, sq, cfg.q_dim), p["wo"]), (k, v)
+    return _matmul(merge_heads(ctx), p["wo"]), (k, v)
 
 
 def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor
            ) -> torch.Tensor:
     """frames: (B, F, D) precomputed embeddings (stub frontend)."""
     x = frames.to(torch.bfloat16) + params["enc_pos"][None].to(torch.bfloat16)
+    x = constrain(x, "batch", None, "embed")
     pos = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_enc_layers):
         p = tree_index(params["enc_layers"], i)
         h = nn.rmsnorm(x, p["ln1"])
         out, _ = _attn(cfg, p["attn"], h, h, pos, pos, causal=False,
                        rope=False)
-        x = x + out
+        x = x + _res(out)
         h2 = nn.rmsnorm(x, p["ln2"])
-        x = x + _mlp2(p["mlp"], h2)
+        x = x + _res(_mlp2(p["mlp"], h2))
     return nn.rmsnorm(x, params["enc_norm"])
 
 
@@ -121,13 +130,13 @@ def _dec_layer_fwd(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     h = nn.rmsnorm(x, p["ln1"])
     out, kv = _attn(cfg, p["self_attn"], h, h, pos, pos, causal=True,
                     rope=True)
-    x = x + out
+    x = x + _res(out)
     hx = nn.rmsnorm(x, p["ln_x"])
     out, xkv = _attn(cfg, p["cross_attn"], hx, enc_out, pos, fpos,
                      causal=False, rope=False)
-    x = x + out
+    x = x + _res(out)
     h2 = nn.rmsnorm(x, p["ln2"])
-    return x + _mlp2(p["mlp"], h2), kv, xkv
+    return x + _res(_mlp2(p["mlp"], h2)), kv, xkv
 
 
 def decode_train(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
@@ -135,7 +144,8 @@ def decode_train(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     """Teacher-forced decoder logits (B, S, vocab) over ``tokens``. With
     ``remat`` each decoder layer runs under ``transformer._remat``'s
     checkpointing (the encoder does not, as in the JAX package)."""
-    x = params["embed"][tokens]
+    x = constrain(nn.embed(params["embed"], tokens), "batch", None,
+                  "embed")
     dev = x.device
     pos = torch.arange(tokens.shape[1], device=dev)
     fpos = torch.arange(enc_out.shape[1], device=dev)
@@ -193,7 +203,7 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
     context_len = context_len if context_len is not None else s
     enc_out = encode(cfg, params, frames)
     cache = init_cache(cfg, b, context_len, device=dev)
-    x = params["embed"][tokens]
+    x = nn.embed(params["embed"], tokens)
     pos = torch.arange(s, device=dev)
     fpos = torch.arange(enc_out.shape[1], device=dev)
     ks, vs, xks, xvs = [], [], [], []
@@ -206,8 +216,9 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
         xvs.append(xv)
     x = nn.rmsnorm(x, params["final_norm"])
     logits = _matmul(x[:, -1:, :], params["lm_head"])
-    cache["k"][:, :, :s] = torch.stack(ks)
-    cache["v"][:, :, :s] = torch.stack(vs)
+    axes = cache_specs(cfg, b, context_len)["k"].axes
+    cache["k"] = nn.fill_cache(cache["k"], torch.stack(ks), axes)
+    cache["v"] = nn.fill_cache(cache["v"], torch.stack(vs), axes)
     # the cross-attention caches take the stacks' dtype, as in the JAX
     # package
     cache["xk"], cache["xv"] = torch.stack(xks), torch.stack(xvs)
@@ -222,8 +233,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
     k/v tensors of ``cache`` are updated IN PLACE and returned in the new
     cache dict; ``k_pos``/``pos`` are new tensors."""
     tok = batch["token"]
-    x = params["embed"][tok]                             # (B,1,D)
-    b = x.shape[0]
+    x = nn.embed(params["embed"], tok)                   # (B,1,D)
     pos = cache["pos"]                                   # (B,)
     positions = pos[:, None]
     slot = pos                                           # no wrap
@@ -235,21 +245,21 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
         p = tree_index(params["dec_layers"], i)
         h = nn.rmsnorm(x, p["ln1"])
         sa = p["self_attn"]
-        q = _matmul(h, sa["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-        k = _matmul(h, sa["wk"]).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
-        v = _matmul(h, sa["wv"]).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+        q = split_heads(_matmul(h, sa["wq"]), cfg.n_heads, cfg.head_dim)
+        k = split_heads(_matmul(h, sa["wk"]), cfg.n_kv_heads, cfg.head_dim)
+        v = split_heads(_matmul(h, sa["wv"]), cfg.n_kv_heads, cfg.head_dim)
         q = nn.apply_rope(q, positions, cfg.rope_theta)
         k = nn.apply_rope(k, positions, cfg.rope_theta)
         kc = nn.masked_cache_update(cache["k"][i], k, slot)
         vc = nn.masked_cache_update(cache["v"][i], v, slot)
         ctx = nn.attend(q, kc, vc, positions, k_pos, causal=True)
-        x = x + _matmul(ctx.reshape(b, 1, cfg.q_dim), sa["wo"])
+        x = x + _matmul(merge_heads(ctx), sa["wo"])
         hx = nn.rmsnorm(x, p["ln_x"])
         ca = p["cross_attn"]
-        qx = _matmul(hx, ca["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        qx = split_heads(_matmul(hx, ca["wq"]), cfg.n_heads, cfg.head_dim)
         ctx = nn.attend(qx, cache["xk"][i], cache["xv"][i], positions, fpos,
                         causal=False)
-        x = x + _matmul(ctx.reshape(b, 1, cfg.q_dim), ca["wo"])
+        x = x + _matmul(merge_heads(ctx), ca["wo"])
         h2 = nn.rmsnorm(x, p["ln2"])
         x = x + _mlp2(p["mlp"], h2)
     x = nn.rmsnorm(x, params["final_norm"])

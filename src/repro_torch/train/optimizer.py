@@ -10,10 +10,11 @@ factor ``min(1, clip_norm / max(gnorm, 1e-12))``, m then v, the bias
 corrections as f32 powers of the step, the weight decay inside the step's
 ``delta``, and the cast back to each parameter's dtype.
 
-The JAX package shards m and v over the data-parallel axes (its ZeRO-1
-``"zero"`` logical axis) and places them by ``state_shardings``. That needs
-a device mesh, which the port does not have yet (ROADMAP.md, Queue 1): here
-the state lives whole on one device and ``state_shardings`` raises.
+ZeRO-1: m and v additionally shard a replicated dim over the data-parallel
+axes (the ``"zero"`` logical axis, ``_zero_spec``), and ``state_shardings``
+places them so on a mesh. Under a mesh the update runs on DTensors: the
+gradients' pending sums are reduced where DTensor's rules put them, and the
+train step hands each new leaf back in its input's placement.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import params as pm
 
@@ -57,14 +59,20 @@ def schedule(oc: OptConfig, step: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _zero_spec(s: pm.Spec) -> pm.Spec:
+    """ZeRO-1: optimizer state sharded over the data axes on the largest
+    effectively-replicated dim (see params.fsdp_spec)."""
+    z = pm.fsdp_spec(s)
+    return pm.Spec(z.shape, z.axes, "zeros")
+
+
 def state_specs(model_spec_tree) -> Dict[str, Any]:
-    """Spec trees of the state: m, v and ef shaped like the parameters,
-    zero-initialised. The reference also moves m and v onto its ZeRO axis;
-    without a mesh the port keeps the parameters' axes."""
-    zeros = pm.tree_map(lambda s: pm.Spec(s.shape, s.axes, "zeros"),
-                        model_spec_tree)
-    return {"m": zeros, "v": zeros, "ef": zeros,
-            "step": pm.Spec((), (), "zeros")}
+    """Spec trees of the state: m and v shaped like the parameters on the
+    ZeRO axis, ef on the parameters' axes, all zero-initialised."""
+    mv = pm.tree_map(_zero_spec, model_spec_tree)
+    ef = pm.tree_map(lambda s: pm.Spec(s.shape, s.axes, "zeros"),
+                     model_spec_tree)
+    return {"m": mv, "v": mv, "ef": ef, "step": pm.Spec((), (), "zeros")}
 
 
 def init_state(oc: OptConfig, model_spec_tree,
@@ -87,10 +95,15 @@ def init_state(oc: OptConfig, model_spec_tree,
 
 
 def state_shardings(oc: OptConfig, model_spec_tree, mesh):
-    """The reference's ZeRO-1 placement of the state on a device mesh."""
-    raise NotImplementedError(
-        "optimizer-state sharding needs a multi-card mesh, which the port "
-        "does not have yet (see ROADMAP.md, Queue 1)")
+    """Where each leaf of the state lives on ``mesh``: m and v on the ZeRO
+    axis, ``step`` replicated (and ef as the parameters)."""
+    spec = state_specs(model_spec_tree)
+    out = {"m": pm.shardings(spec["m"], mesh),
+           "v": pm.shardings(spec["v"], mesh),
+           "step": shd.named_sharding(mesh, (), ())}
+    if oc.compress_grads:
+        out["ef"] = pm.shardings(spec["ef"], mesh)
+    return out
 
 
 # ---------------------------------------------------------------------------

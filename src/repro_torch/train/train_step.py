@@ -11,6 +11,12 @@ no counterpart yet (CUDA graphs are ROADMAP.md's item 10). The backward pass
 is autograd's through the plain routes: the kernel entry points have no
 backward and raise under autograd (``kernels/ops.py``), as the reference's
 Pallas kernels have none, so train with ``cfg.use_pallas=False``.
+
+On a device mesh (``sharding.use_mesh``) the step takes DTensors placed by
+``model_api.param_shardings`` / ``optimizer.state_shardings`` /
+``model_api.batch_shardings`` and hands every new parameter and state leaf
+back in its input's placement, as the reference's ``out_shardings`` do;
+the metrics come back replicated.
 """
 from __future__ import annotations
 
@@ -18,17 +24,33 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import model_api as api
 from repro_torch.models import params as pm
 from repro_torch.train import optimizer as opt
 
 
+def _rows(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of ``v``'s rows: consecutive rows of the
+    whole batch, as the reference's reshape to (n, B // n, ...) splits
+    them. Of a DTensor, the same global rows, placed as the batch is
+    (``sharding.take_rows``): the masked mean and the MoE load-balancing
+    loss of a microbatch depend on which rows it holds."""
+    m = v.shape[0] // n
+    return shd.take_rows(v, i * m, (i + 1) * m)
+
+
 def _split_microbatches(batch: Dict, n: int):
-    """``n`` microbatches of consecutive rows, as the reference's reshape
-    to (n, B // n, ...) splits them."""
-    return [{k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
-             for k, v in batch.items()} for i in range(n)]
+    return [{k: _rows(v, i, n) for k, v in batch.items()} for i in range(n)]
+
+
+def _placed_like(new, old):
+    """``new`` redistributed to ``old``'s placements (DTensor leaves)."""
+    if not shd.is_dtensor(old) or tuple(new.placements) == tuple(
+            old.placements):
+        return new
+    return new.redistribute(old.device_mesh, old.placements)
 
 
 def _value_and_grad(cfg: ModelConfig, params, mb: Dict):
@@ -67,7 +89,11 @@ def make_train_step(cfg: ModelConfig, oc: opt.OptConfig,
             loss, _, grads = _value_and_grad(cfg, params, batch)
         new_params, new_state, om = opt.apply_updates(oc, params, grads,
                                                       opt_state)
-        return new_params, new_state, {"loss": loss, **om}
+        new_params = pm.tree_map(_placed_like, new_params, params)
+        new_state = pm.tree_map(_placed_like, new_state, opt_state)
+        metrics = {"loss": loss, **om}
+        return new_params, new_state, {k: shd.settle(v)
+                                       for k, v in metrics.items()}
 
     return train_step
 

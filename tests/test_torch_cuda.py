@@ -714,3 +714,146 @@ def test_a_reduced_train_step_on_the_card_matches_the_cpu(cuda_device):
         close += int((err <= 1e-6 * w.abs() + 1e-3 * lr).sum())
         total += err.numel()
     assert close / total >= 0.999
+
+
+# ------------------------------------------- a mesh of one rank on the card
+@pytest.fixture(scope="module")
+def card_mesh():
+    """A (1, 1) ("data", "model") mesh over a world of one on the card
+    (NCCL, an in-memory store), torn down after the module's tests. One
+    card gives one rank; four CPU ranks cover more
+    (tests/test_torch_mesh_ranks.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    started = not dist.is_initialized()
+    mesh = make_local_mesh(1, device="cuda")
+    yield mesh
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_through_the_local_shard_wrapper(card_mesh, dtype):
+    """K3 on DTensors (batch and heads placed on the mesh): one launch, the
+    kernel's output on the local shard within the plain version's TOL."""
+    from repro_torch import sharding as shd
+    mesh = card_mesh
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, 128, h, 64, generator=g, device="cuda").to(
+        TORCH[dtype]) for h in (4, 2, 2))
+    sh = shd.named_sharding(mesh, q.shape, ("batch", None, "heads", None))
+    kv_sh = shd.named_sharding(mesh, k.shape, ("batch", None, "heads", None))
+    fa.flash_attention_cuda.launches = 0
+    with shd.use_mesh(mesh):
+        out = ops.flash_attention(shd.distribute(q, sh),
+                                  shd.distribute(k, kv_sh),
+                                  shd.distribute(v, kv_sh))
+    assert shd.is_dtensor(out) and fa.flash_attention_cuda.launches == 1
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.to_local().float(), want.float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_shmap_flash_decode_on_the_card_matches_plain_decode(card_mesh):
+    """Reduced qwen3 in bf16: prefill, then three split-K decode steps on
+    the mesh, fed the meshless greedy decode's tokens, against it: logits
+    within the JAX package's 5e-2 for its two decode routes, the same
+    greedy choice wherever the top two logits are more than 0.1 apart."""
+    from repro_torch import sharding as shd
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model_api as api
+    from repro_torch.models import params as pm
+    mesh = card_mesh
+    cfg = get_config("qwen3-0.6b").reduced().replace(
+        decode_impl="shmap_flash")
+    params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda")
+    toks = torch.randint(1, cfg.vocab_size, (4, 16), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    runs, fed = [], [toks[:, -1:]]
+    with torch.inference_mode():
+        for placed in (False, True):
+            _, cache = api.prefill(cfg, params, {"tokens": toks}, 16)
+            p = params
+            if placed:
+                cache = pm.distribute(cache, api.cache_shardings(
+                    cfg, mesh, 4, 16))
+                p = pm.distribute(params, api.param_shardings(cfg, mesh))
+            logits = []
+            with shd.use_mesh(mesh if placed else None):
+                for i in range(3):
+                    lg, cache = api.decode_step(cfg, p, cache,
+                                                {"token": fed[i]})
+                    lg = lg.full_tensor() if placed else lg
+                    logits.append(lg.float())
+                    if not placed:
+                        fed.append(lg[:, -1].argmax(-1)[:, None])
+            runs.append(torch.stack(logits))
+    torch.testing.assert_close(runs[1], runs[0], atol=5e-2, rtol=5e-2)
+    top2 = runs[0].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 0.1
+    assert torch.equal(runs[1].argmax(-1)[clear], runs[0].argmax(-1)[clear])
+
+
+@pytest.mark.cuda
+def test_zero_placed_train_step_on_the_card_matches_meshless(card_mesh):
+    """Reduced qwen3 in f32, one train step with the parameters placed by
+    ``param_shardings`` and AdamW's state by ``state_shardings`` (the ZeRO
+    axis) against the meshless step, each leaf in its declared placement.
+    On a world of one the local ops are the meshless ones, but on the
+    card the meshless step itself does not always repeat bit for bit
+    (``launch/mesh_parity.py``: its first step and later ones take two bit
+    patterns, and the mesh step equals one of them): the f32 train tests'
+    tolerance (tests/train_cases.py ``check_params``: loss 2e-5
+    rel; parameters 2e-5 rel + 2.1 lr, 99.9% within 1e-6 rel + 1e-3 lr; m
+    and v within 1e-4 of their leaf's largest entry)."""
+    from repro_torch import sharding as shd
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model_api as api
+    from repro_torch.models import params as pm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    mesh = card_mesh
+    cfg = get_config("qwen3-0.6b").reduced()
+    oc = opt.OptConfig()
+    specs = api.model_specs(cfg)
+    shape = InputShape("t", 32, 4, "train")
+    params = pm.tree_map(lambda t: t.float(), api.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    batch = api.make_batch(cfg, shape, np.random.default_rng(0),
+                           device="cuda")
+    step = make_train_step(cfg, oc)
+    p0, s0, m0 = step(params, opt.init_state(oc, specs, "cuda"), batch)
+    p_sh, s_sh = api.param_shardings(cfg, mesh), opt.state_shardings(
+        oc, specs, mesh)
+    with shd.use_mesh(mesh):
+        p1, s1, m1 = step(pm.distribute(params, p_sh),
+                          pm.distribute(opt.init_state(oc, specs, "cuda"),
+                                        s_sh),
+                          pm.distribute(batch, api.batch_shardings(
+                              cfg, mesh, shape)))
+    assert float(m1["loss"].full_tensor()) == pytest.approx(
+        float(m0["loss"]), rel=2e-5)
+    lr = float(m0["lr"])
+    close = total = 0
+    for got, want, sh in zip(pm.tree_leaves(p1), pm.tree_leaves(p0),
+                             pm.tree_leaves(p_sh)):
+        assert tuple(got.placements) == sh.placements
+        err = (got.to_local() - want).abs()
+        assert bool((err <= 2e-5 * want.abs() + 2.1 * lr).all())
+        close += int((err <= 1e-6 * want.abs() + 1e-3 * lr).sum())
+        total += err.numel()
+    assert close / total >= 0.999
+    for got, want, sh in zip(pm.tree_leaves(s1), pm.tree_leaves(s0),
+                             pm.tree_leaves(s_sh)):
+        assert tuple(got.placements) == sh.placements
+        err = float((got.to_local().float() - want.float()).abs().max())
+        assert err <= 1e-4 * max(float(want.float().abs().max()), 1e-30)

@@ -45,14 +45,21 @@ def test_every_module_imports_without_jax_or_repro():
                  "launch.explain", "models.moe", "models.whisper",
                  "train.optimizer", "train.train_step", "data.pipeline",
                  "checkpoint.checkpointer", "launch.train",
-                 "launch.quickstart", "models.model_api", "models.convert"):
+                 "launch.quickstart", "models.model_api", "models.convert",
+                 "sharding", "launch.mesh", "launch.dryrun",
+                 "launch.dryrun_lib", "launch.train_multipod",
+                 "launch.mesh_parity"):
         assert f"repro_torch.{name}" in mods
+    # importing the mesh and dry-run modules starts no process group
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'"
             " or m.startswith('jax.') or m == 'repro'"
             " or m.startswith('repro.') or m == 'ml_dtypes')\n"
+            "import torch.distributed as dist\n"
+            "if dist.is_initialized():\n"
+            "    bad.append('a process group')\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = _run(code)

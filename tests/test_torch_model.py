@@ -317,15 +317,27 @@ def test_recurrent_decode_matches_full_forward(rec_params, name, use_pallas):
                                          {"token": torch.tensor([[nxt]])})
 
 
-def test_other_families_raise():
-    """Every family of the JAX package is served now; what still raises is
-    the two mesh-only bodies, the sharded flash decode and the sharded MoE
-    dispatch, which one card never reaches."""
-    from repro_torch.models import moe as tmoe
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm._flash_decode_shmap()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe._sorted_shard_map()
+def test_mesh_bodies_take_the_unsharded_branch_without_a_mesh(jax_params,
+                                                               monkeypatch):
+    """``decode_impl="shmap_flash"`` takes the split-K body only under a
+    mesh with a "model" axis (the JAX package's condition): without one the
+    decode is the plain decode, bit for bit, and the body is never called;
+    under a mesh the body runs (tests/test_torch_mesh_ranks.py)."""
+    _, _, tcfg, tp = _setup(jax_params, "f32", False)
+    called = []
+    monkeypatch.setattr(ttfm, "_flash_decode_shmap",
+                        lambda *a, **k: called.append(1))
+    toks = torch.from_numpy(_tokens(1, (2, SEQ)))
+    outs = []
+    for impl in ("gspmd", "shmap_flash"):
+        cfg = tcfg.replace(decode_impl=impl)
+        _, cache = tapi.prefill(cfg, tp, {"tokens": toks}, CTX)
+        logits, cache = tapi.decode_step(
+            cfg, tp, cache, {"token": torch.from_numpy(_tokens(10, (2, 1)))})
+        outs.append((logits, cache["k"]))
+    assert not called
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=0, atol=0)
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "dbrx-132b",

@@ -249,9 +249,21 @@ def test_dispatches_drop_the_same_choices(jax_params, name, cf):
     torch.testing.assert_close(ye, y0, atol=2e-5, rtol=2e-5)
 
 
-def test_sorted_shard_map_is_mesh_only():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tmoe._sorted_shard_map()
+@pytest.mark.parametrize("cf", [8.0, 0.5])
+def test_sorted_shard_map_is_the_sorted_dispatch_without_a_mesh(jax_params,
+                                                                 cf):
+    """Without a mesh "sorted_shmap" falls back to the sorted dispatch, as
+    the JAX package's does: the same outputs and aux loss, bit for bit. Its
+    local body runs on four CPU ranks in tests/test_torch_mesh_ranks.py."""
+    _, _, tcfg, tp = _setup(jax_params, "mixtral", "bf16",
+                            capacity_factor=cf)
+    tlayer = {k: v[0] for k, v in tp["layers"]["moe"].items()}
+    _, tx = _x(3, tcfg, "bf16")
+    y1, a1 = tmoe.moe_block(tcfg.replace(moe_impl="sorted_shmap"), tlayer,
+                            tx)
+    y2, a2 = tmoe.moe_block(tcfg.replace(moe_impl="sorted"), tlayer, tx)
+    torch.testing.assert_close(y1, y2, rtol=0, atol=0)
+    assert float(a1) == float(a2)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

@@ -225,9 +225,37 @@ def test_global_norm_matches_reference():
     assert float(got) == pytest.approx(float(want), rel=1e-6)
 
 
-def test_state_shardings_waits_for_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        topt.state_shardings(topt.OptConfig(), {}, None)
+@pytest.mark.parametrize("compress", [False, True])
+def test_state_shardings_place_the_zero_axis(compress):
+    """ZeRO-1: m and v of every leaf on the reference's specs, the data axis
+    on the largest replicated dim (16x16 mesh, no devices needed); the
+    step replicated; ef (with int8 compression) as the parameters."""
+    from jax.sharding import AbstractMesh
+    from repro.models import params as jpm
+    from repro_torch import sharding as shd
+
+    mesh = shd.AbstractMesh((16, 16), ("data", "model"))
+    jmesh = AbstractMesh((16, 16), ("data", "model"))
+    oc = topt.OptConfig(compress_grads=compress)
+    cfg = treg.get_config("qwen3-0.6b")
+    got = topt.state_shardings(oc, tapi.model_specs(cfg), mesh)
+    want = jopt.state_specs(japi.model_specs(jreg.get_config("qwen3-0.6b")))
+    assert sorted(got) == (["ef", "m", "step", "v"] if compress
+                           else ["m", "step", "v"])
+    for part in got:
+        if part == "step":
+            assert got[part].spec == ()
+            continue
+        g = tpm.tree_leaves(got[part])
+        w = [tuple(a for a in s) for s in jax.tree_util.tree_leaves(
+            jpm.pspecs(want[part], jmesh),
+            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))]
+        for gs, ws in zip(g, w):
+            while ws and ws[-1] is None:
+                ws = ws[:-1]
+            assert gs.spec == ws
+        if part in ("m", "v"):
+            assert any("data" in (s.spec or ()) for s in g)
 
 
 # ------------------------------------------------------- autograd guard ----

@@ -25,7 +25,11 @@ columnar admission path, behind the QoS admission controller, under the
 telemetry engine and under the decision journal, which the admission stream
 does not take. The autoscale arms' warm-pool forecaster ticks on the card
 (``repro_torch.kernels.warm_forecast``: torch ops, as the JAX package's tick
-is ``jax.jit`` and no Pallas kernel).
+is ``jax.jit`` and no Pallas kernel). The twins of examples/serve_fdn.py and
+examples/energy_aware_scheduling.py (``repro_torch.launch.serve_fdn`` and
+``.energy_aware_scheduling``) follow: serve_fdn reaches K1 on a path that
+no earlier phase takes, with hedging and predictive prewarming on, one
+invocation at a time through ``Gateway.request``.
 
 Four models are served at full width through ``repro_torch.serving.engine``,
 one after another (each one's weights are freed before the next loads):
@@ -122,7 +126,20 @@ Phases, each printing its numbers on lines of its own:
      torch ticks above 0 in autoscale/diurnal-predictive, the journal's
      same-policy replay true in prov/smoke-tiny, and each report with a
      golden in benchmarks/golden/ without drift against it
-     (``benchmarks/scenario_diff.diff_reports``);
+     (``benchmarks/scenario_diff.diff_reports``); then the twins of the
+     last two examples (``[examples]``), with every real body's measured
+     seconds pinned to ``tests/example_pins.py``'s: serve_fdn (the five
+     simulated TPU platforms, hedging and predictive prewarming on, the
+     five paper functions and three analytic serving functions, each
+     invocation admitted alone through ``Gateway.request``) three ways,
+     numpy, torch and torch with K1, and energy_aware_scheduling (Table 4
+     and the energy-aware policy's two choices) two ways, numpy and torch,
+     each twin's report byte-identical across its runs, every kernel's
+     launch count set to 0 just before each run and read just after (K1's
+     equal to serve_fdn's torch decisions in its K1 run, every other count
+     0); then serve_fdn under torch with K1 and energy_aware_scheduling
+     under torch once more with the real bodies on the card, each body's
+     measured seconds printed;
   6. per served model: serve 16 requests (prompts of 64-1000 tokens, 32 new
      tokens each) at full width, bf16, random weights from seed 0, batch 4,
      context 1024, with every kernel's launch count set to 0 just before
@@ -1368,6 +1385,88 @@ def inspector() -> dict:
     return k1_launches
 
 
+@contextlib.contextmanager
+def pinned_bodies():
+    """``ExecutionModel.measure_real`` replaced by the tests' fixed seconds
+    per function (``tests/example_pins.py``) for the block: the examples
+    time their real bodies once on the host's clock otherwise, so two runs
+    print the same bytes only when their host was equally loaded."""
+    from example_pins import pinned_measure_real
+    from repro_torch.core.platform import ExecutionModel
+    saved = ExecutionModel.measure_real
+    ExecutionModel.measure_real = pinned_measure_real
+    try:
+        yield
+    finally:
+        ExecutionModel.measure_real = saved
+
+
+def _example_run(run, label, bodies, backend, kernel):
+    """One run of a twin with every kernel's launch count set to 0 just
+    before it and read just after; K1's launches must equal the run's
+    torch decisions under the kernel, every other count 0."""
+    import time
+    kernels = wrappers()
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = run(backend, device=DEV, **({"kernel": True} if kernel else {}))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    example = run.__module__.rsplit(".", 1)[1]
+    n = out["torch_decisions"]
+    say("examples", example=example, run=label, bodies=bodies, wall_s=wall,
+        launches=launches, **out)
+    want = {k: 0 for k in launches}
+    if kernel and example == "serve_fdn":
+        want["fused_composite_decide"] = n
+    if (n > 0) != (backend == "torch"):
+        raise AssertionError(f"{example} under {label}: {n} torch "
+                             f"decisions")
+    if launches != want:
+        raise AssertionError(f"{example} under {label}: kernel launches "
+                             f"{launches} != {want}")
+    return out
+
+
+def examples() -> int:
+    """Phase 5d. The twins of examples/serve_fdn.py (hedging and predictive
+    prewarming on, every invocation through ``Gateway.request``) and
+    examples/energy_aware_scheduling.py (Table 4). With the bodies pinned
+    (``pinned_bodies``): serve_fdn three ways (numpy, torch, torch with K1)
+    and energy_aware_scheduling two ways (numpy, torch), each twin's
+    printed report byte-identical across its runs. Then each once with
+    its real bodies on the card, their measured seconds printed. Returns
+    K1's launches in the pinned K1 run of serve_fdn."""
+    from repro_torch.launch import energy_aware_scheduling, serve_fdn
+    k1 = None
+    with pinned_bodies():
+        for twin, ways in ((serve_fdn, THREE_WAYS),
+                           (energy_aware_scheduling, THREE_WAYS[:2])):
+            reports = {}
+            for label, backend, kernel, _ in ways:
+                out = _example_run(twin.run, label, "pinned", backend,
+                                   kernel)
+                reports[label] = twin.report(out)
+                if twin is serve_fdn and kernel:
+                    k1 = out["k1_launches"]
+            for label in reports:
+                if reports[label] != reports["numpy"]:
+                    raise AssertionError(
+                        f"{twin.__name__}: the report under {label} "
+                        f"differs from numpy's:\n{reports[label]}\n"
+                        f"{reports['numpy']}")
+            say("examples", example=twin.__name__.rsplit(".", 1)[1],
+                identical=list(reports), report=reports["numpy"], ok=True)
+    for twin, kernel in ((serve_fdn, True), (energy_aware_scheduling, False)):
+        out = _example_run(twin.run, "torch_k1" if kernel else "torch",
+                           "real", "torch", kernel)
+        print(twin.report(out), end="", flush=True)
+    return k1
+
+
 # ---------------------------------------------------------------------------
 # Phases 6 and 7: serve each model; logits
 # ---------------------------------------------------------------------------
@@ -2372,6 +2471,7 @@ def main() -> int:
         policy_parity()
         launches = {"admission": admission_stream()}
         inspector_launches = inspector()
+        serve_fdn_launches = examples()
         cache_launches = 0
         for arch in MODELS:
             launches[arch], n = run_model(arch)
@@ -2454,7 +2554,8 @@ def main() -> int:
                    launches["admission"]["fused_composite_decide"], err_ps,
                    t_ps[("fused_composite_decide", 1, 5)]),
              host_ms_per_decision=t_dec, decision_by_functions=t_cross,
-             inspector_launches=inspector_launches),
+             inspector_launches=inspector_launches,
+             serve_fdn_launches=serve_fdn_launches),
         # no path of either package reaches K2: its launches are 0
         entry("composite_decide", "policy_score",
               "src/repro/kernels/policy_score.py:266",

@@ -543,6 +543,39 @@ def test_inspector_scenario_three_ways_through_k1(cuda_device):
     assert reports["torch_k1"] == reports["numpy"]
 
 
+@pytest.mark.cuda
+def test_serve_fdn_three_ways_through_k1(cuda_device, monkeypatch):
+    """examples/serve_fdn.py's twin (hedging and predictive prewarming on,
+    each invocation through ``Gateway.request``) with its real bodies
+    pinned to fixed seconds, under the numpy backend, the torch backend and
+    torch with K1 on the card: the same printed report, and K1 launched
+    once per torch decision of the K1 run, no other kernel at all."""
+    from example_pins import pinned_measure_real
+    from repro_torch.core.platform import ExecutionModel
+    from repro_torch.launch import serve_fdn
+    monkeypatch.setattr(ExecutionModel, "measure_real", pinned_measure_real)
+    counted = (fa.flash_attention_cuda, da.decode_attention_cuda,
+               ssd.ssd_scan_cuda, rg.rglru_scan_cuda,
+               ps.fused_composite_decide_cuda, ps.composite_decide_cuda)
+    reports = {}
+    for label, backend, kernel in (("numpy", "numpy", False),
+                                   ("torch", "torch", False),
+                                   ("torch_k1", "torch", True)):
+        before = [fn.launches for fn in counted]
+        out = serve_fdn.run(backend, kernel, cuda_device)
+        torch.cuda.synchronize()
+        launched = [fn.launches - b for fn, b in zip(counted, before)]
+        reports[label] = serve_fdn.report(out)
+        assert (out["torch_decisions"] > 0) == (backend == "torch")
+        if kernel:
+            assert out["k1_launches"] == out["torch_decisions"]
+            assert launched == [0, 0, 0, 0, out["torch_decisions"], 0]
+        else:
+            assert launched == [0] * len(counted)
+    assert reports["torch"] == reports["numpy"]
+    assert reports["torch_k1"] == reports["numpy"]
+
+
 # ---------------------------------------------------------------------------
 # The warm-pool forecaster's tick on the card (torch ops, no hand-written
 # kernel: the JAX package's tick is jax.jit, not Pallas). Decisions bit-equal

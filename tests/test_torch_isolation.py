@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "launch.quickstart", "models.model_api", "models.convert",
                  "sharding", "launch.mesh", "launch.dryrun",
                  "launch.dryrun_lib", "launch.train_multipod",
-                 "launch.mesh_parity"):
+                 "launch.mesh_parity", "launch.serve_fdn",
+                 "launch.energy_aware_scheduling"):
         assert f"repro_torch.{name}" in mods
     # importing the mesh and dry-run modules starts no process group
     code = ("import importlib, sys\n"

@@ -12,7 +12,9 @@ attention kernel (``kernels/ops.flash_attention``); otherwise it runs
 ``layers.chunked_attention``. Decode attention is ``layers.attend`` either
 way, as in the JAX package. The MoE family's feed-forward is
 ``moe.moe_block``; its load-balancing loss is summed by ``forward_hidden``
-and ignored by ``prefill`` and ``decode_step``.
+and ignored by ``prefill`` and ``decode_step``. Each layer's decode
+attention and MoE block are profiler ranges (``decode.attend``,
+``layer.moe``; ``repro_torch.ranges``).
 
 On a device mesh (``sharding.use_mesh``) the tensors are DTensors and
 ``constrain`` places the activations where the JAX package does. With
@@ -34,6 +36,7 @@ from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import Spec, stack, tree_index
 from repro_torch import sharding as shd
+from repro_torch.ranges import ranged
 from repro_torch.sharding import constrain, merge_heads, split_heads
 
 
@@ -142,7 +145,8 @@ def ffn_block(cfg: ModelConfig, p: Dict, x: torch.Tensor):
     or 0.0 (a Python float: no launch on the card) for the dense MLP."""
     h = nn.pre_norm(x, p["ln2"])
     if cfg.family == MOE:
-        out, aux = moe_mod.moe_block(cfg, p["moe"], h)
+        with ranged("layer.moe"):
+            out, aux = moe_mod.moe_block(cfg, p["moe"], h)
     else:
         out, aux = nn.gated_mlp(h, **p["mlp"]), 0.0
     return x + nn.to_residual(cfg, out), aux
@@ -407,14 +411,16 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, batch: Dict):
         p = tree_index(params["layers"], i)
         h = nn.rmsnorm(x, p["ln1"])
         q, k, v = _project_qkv(cfg, p["attn"], h, positions)
-        if use_shmap:
-            ctx, _, _ = _flash_decode_shmap(q, cache["k"][i], cache["v"][i],
-                                            k, v, slot, pos, mesh)
-        else:
-            kc = nn.masked_cache_update(cache["k"][i], k, slot)
-            vc = nn.masked_cache_update(cache["v"][i], v, slot)
-            ctx = nn.attend(q, kc, vc, positions, k_pos, causal=True,
-                            window=cfg.sliding_window)
+        with ranged("decode.attend"):
+            if use_shmap:
+                ctx, _, _ = _flash_decode_shmap(q, cache["k"][i],
+                                                cache["v"][i], k, v, slot,
+                                                pos, mesh)
+            else:
+                kc = nn.masked_cache_update(cache["k"][i], k, slot)
+                vc = nn.masked_cache_update(cache["v"][i], v, slot)
+                ctx = nn.attend(q, kc, vc, positions, k_pos, causal=True,
+                                window=cfg.sliding_window)
         x = x + _matmul(merge_heads(ctx), p["attn"]["wo"])
         x, _ = ffn_block(cfg, p, x)
     x = nn.rmsnorm(x, params["final_norm"])

@@ -290,3 +290,109 @@ def test_moe_engine_parity_with_jax_engine(moe_models):
         "tokens": torch.from_numpy(padded[:, :10])}, 64)
     gap = float((lp.float() - lb.float()).abs().max())
     assert gap > 2 ** -5 * float(lp.float().abs().max())   # not rounding
+
+
+# ---------------------------------------------------------------------------
+# Stamps, counters and profiler ranges
+# ---------------------------------------------------------------------------
+
+# (prompt length, new tokens). With two slots: the first two are admitted
+# at once; the third waits for the second's slot and decodes alone from the
+# third step on: 4 decode steps, 6 active rows of 8.
+SERVED = ((5, 3), (9, 2), (62, 4))
+# family -> (arch, layers, capacity, live keys). A row's live keys at a
+# decode step are its cache position after prefill (the prompt; the hybrid
+# runs its pad tokens through, so the bucket: 16, 16, 64), plus the tokens
+# decoded so far and this step's, capped at the capacity: dense
+# 6+7, 10, 63+64+65; MoE (window 64) 6+7, 10, 63+64+64; hybrid (window
+# 32) 17+18, 17, 32+32+32.
+COUNTED = {"dense": ("qwen3-0.6b", 2, 64 + 128, 215),
+           "moe": ("mixtral-8x7b", 2, 64, 214),
+           "hybrid": ("recurrentgemma-9b", 3, 32, 148)}
+
+
+def _f32_engine(family):
+    arch, layers, _, _ = COUNTED[family]
+    cfg = treg.get_config(arch).reduced().replace(num_layers=layers)
+    params = tpm.init(tapi.model_specs(cfg), torch.Generator().manual_seed(0),
+                      torch.float32, "cpu")
+    eng = ServingEngine(cfg, params, batch_size=2, max_context=64)
+    rng = np.random.default_rng(11)
+    reqs = [Request(rid=i, prompt=rng.integers(1, 512, n).astype(np.int32),
+                    max_new_tokens=m) for i, (n, m) in enumerate(SERVED)]
+    return cfg, eng, reqs
+
+
+@pytest.mark.parametrize("family", list(COUNTED))
+def test_engine_stamps_and_counters(family):
+    """Every request is stamped submitted <= admitted <= first token on the
+    engine's clock, and the decode batches' counters equal hand counts."""
+    _, cap, live = COUNTED[family][1:]
+    _, eng, reqs = _f32_engine(family)
+    eng.run(reqs)
+    assert all(r.done for r in reqs)
+    for r in reqs:
+        assert r.submitted_s <= r.admitted_s <= r.first_token_s <= r.done_s
+    st = eng.stats()
+    assert st["decode_steps"] == 4
+    assert st["tokens_generated"] == 6
+    assert eng.cap == cap
+    assert st["keys_live"] == live
+
+
+def _nested_in(inner, outers):
+    return all(any(o.time_range.start <= i.time_range.start
+                   and i.time_range.end <= o.time_range.end for o in outers)
+               for i in inner)
+
+
+@pytest.mark.parametrize("family", ["dense", "moe"])
+def test_engine_profiler_ranges(family):
+    """Under a CPU profiler: one ``decode.attend`` a layer and decode step,
+    one ``layer.moe`` a layer and prefill or decode step in the MoE model,
+    one ``engine.retire`` a step, one ``engine.admit`` a step that admits;
+    each inside the range that holds it."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, eng, reqs = _f32_engine(family)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.run(reqs)
+    ev = {}
+    for e in prof.events():
+        ev.setdefault(e.name, []).append(e)
+    steps, layers = eng.stats()["decode_steps"], cfg.num_layers
+    assert len(ev["engine.decode_step"]) == len(ev["engine.retire"]) == steps
+    assert len(ev["engine.admit"]) == 2
+    assert len(ev["engine.prefill"]) == len(reqs)
+    assert len(ev["decode.attend"]) == layers * steps
+    assert _nested_in(ev["decode.attend"], ev["engine.decode_step"])
+    assert _nested_in(ev["engine.prefill"], ev["engine.admit"])
+    if family == "moe":
+        assert len(ev["layer.moe"]) == layers * (steps + len(reqs))
+        assert _nested_in(ev["layer.moe"], ev["engine.decode_step"]
+                          + ev["engine.prefill"])
+    else:
+        assert "layer.moe" not in ev
+
+
+def test_ranges_open_nothing_without_a_profiler(monkeypatch):
+    """With no profiler running the engine and the model open no range;
+    under one they open every range."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import ranges
+    entered = []
+    real = ranges._host_range
+
+    def counting(name):
+        entered.append(name)
+        return real(name)
+
+    monkeypatch.setattr(ranges, "_host_range", counting)
+    _, eng, reqs = _f32_engine("moe")
+    eng.run(reqs)
+    assert entered == []
+    _, eng, reqs = _f32_engine("moe")
+    with profile(activities=[ProfilerActivity.CPU]):
+        eng.run(reqs)
+    assert set(entered) == {"engine.admit", "engine.prefill", "layer.moe",
+                            "engine.decode_step", "decode.attend",
+                            "engine.retire"}
